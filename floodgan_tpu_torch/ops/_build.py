@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+All ``csrc/*.cu`` files are compiled by one nvcc call into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library lands in ``floodgan_tpu_torch/build/`` under a name
+that carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+import: the first launch on a CUDA tensor calls ``library()``.  A missing
+nvcc or a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills per kernel, into the build log
+)
+
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+# C entry points and their argument types.  Every pointer and the stream
+# are c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
+SIGNATURES = {
+    # x, residual (or NULL), y, planes, hw, relu, slope, eps, stream
+    "floodgan_in_act_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    "floodgan_in_act_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    # content, logits, rgb, out, mask, batch, hw, rgb batch stride, stream
+    "floodgan_attention_compose_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels unless the library for the current sources
+    exists.  Returns (library path, compiler output; "" when reused)."""
+    out = BUILD_DIR / f"libfloodgan_kernels_{source_hash()}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{out.name}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
