@@ -3,26 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path for PairedAttention (topography "all", 9
-input channels) at full width, 512^2, and fails unless every phase passes:
+Drives the port's two main paths for PairedAttention (topography "all", 9
+input channels) at full width, 512^2: serving, and paired training.  It
+fails unless every phase passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
 2. build    - compiles csrc/*.cu with nvcc for sm_90a (ops/_build.py).
 3. kernels  - each hand-written kernel against its plain PyTorch version on
-              the card, at the shapes one batch-8 512^2 forward gives it, with
-              its median time (CUDA events), its bound, the plain version's
-              time and, where one PyTorch call computes the same function,
-              that call's time.  Ends with one JSON "kernels" line.
+              the card, at the shapes the main paths give it (K1 instance
+              norm and K3 compose, f32 and bf16; K2 instance-norm backward
+              at the 4 generator and 3 PatchGAN sites, f32 and bf16; K4
+              compose backward, f32 and bf16, with and without the mask
+              gradient), with its median time (CUDA events), its bound, the
+              plain version's time and, where one PyTorch call computes the
+              same function, that call's time; then odd edge shapes.
 4. engine   - InferenceEngine at batch 8 and batch 1 from a seeded init: one
-              predict launches the IN kernel 25 times and compose once; the
-              output is finite, in [0, 1]; latency and images/s.
+              predict launches the IN kernel 25 times and compose once, and
+              no backward kernel; the output is finite, in [0, 1]; latency
+              and images/s.
 5. requests - 12 requests from 4 threads through BatchingFrontend, with the
-              launch counts set to 0 before and read after: the main path.
+              launch counts set to 0 before and read after: the serving path.
 6. card-cpu - the same weights at 128^2, batch 1: card engine against the
               CPU engine (plain versions), TF32 off.
+7. train    - PairedTrainer at 512^2, batch 8, bf16, from a seeded init: one
+              train_step, with the launch counts set to 0 before and read
+              after, launches K1 34 times, K2 34 times, K3 and K4 once: the
+              training path.  Five steps give finite losses and change both
+              parameter sets; then the median step time over 10 steps,
+              samples/s and peak memory.
+8. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
+              off) on the card and on the CPU (plain versions): step-1 and
+              step-2 losses.
 
-The last line is {"ok": true, "device": {...}}.  Without a card, or without
-the package beside it, the script exits non-zero and prints no result.
+The line before the verdict is one JSON "kernels" line.  The last line is
+{"ok": true, "device": {...}}.  Without a card, or without the package
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -52,10 +67,31 @@ IN_SITES = (
     ("128^2x256 relu", (BATCH, 256, S // 4, S // 4), True, False, 10),
     ("128^2x256 residual", (BATCH, 256, S // 4, S // 4), False, True, 9),
 )
+# PatchGAN instance-norm levels of one batch-8 512^2 D read (all leaky 0.2):
+# (label, shape).  Each is read 3 times per train step (the D update's two
+# reads and the G update's one), forward and backward.
+D_SITES = (
+    ("128^2x128 leaky", (BATCH, 128, S // 4, S // 4)),
+    ("64^2x256 leaky", (BATCH, 256, S // 8, S // 8)),
+    ("63^2x512 leaky", (BATCH, 512, S // 8 - 1, S // 8 - 1)),
+)
+D_READS = 3
+LR = 2e-4
+TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1}
+SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0}
 TOL_F32_IN = 1e-4      # f32, another summation order of the plane statistics
 TOL_F32 = 1e-5         # f32 elementwise (compose)
 TOL_BF16 = 2e-2        # bf16 output, plus one bf16 ulp (2^-7 relative) for a
 BF16_RTOL = 2.0 ** -7  # rounding flipped by the statistics' summation order
+KINK = 1e-5            # |yhat| within which the kernel and the plain IN backward
+                       # may take either side of the activation's kink (g is
+                       # zeroed there for the comparison)
+TOL_TRAIN_STEP1 = 1e-4  # card against CPU, step-1 losses
+# Step-2 losses follow one Adam update, whose first step is about
+# lr * sign(grad): a gradient that is zero up to rounding flips sign between
+# the card and the CPU.  The JAX package's own two routes differ by 4.3e-4
+# there; the CPU tests hold the port to JAX at the same 2e-3.
+TOL_TRAIN_STEP2 = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -116,7 +152,8 @@ def phase_build() -> None:
     path, log = _build.build()
     _build.library()
     dt = time.perf_counter() - t0
-    say("build", f"{path.name} in {dt:.2f} s ({len(_build.sources())} sources, one nvcc call)")
+    say("build", f"{path.name} in {dt:.2f} s ({len(_build.sources())} sources, one nvcc call "
+                 "each, in parallel, then one link)")
     for line in log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             say("build", "ptxas " + line.split("info    :")[-1].strip())
@@ -126,124 +163,274 @@ def _randn(shape, dtype, gen, mean=0.0):
     return (torch.randn(shape, generator=gen, device="cuda") + mean).to(dtype)
 
 
-def phase_kernels() -> list:
+def _off_kink(x, g, relu: bool):
+    """g with zeros where |yhat| <= KINK (yhat as the plain statistics give
+    it), and how many.  There the kernel and the plain version may take
+    either side of the activation's kink, because their statistics differ
+    in summation order; a zero g makes both sides the same, so the whole
+    output, plane means included, compares exactly."""
+    if not relu:
+        return g, 0
     from floodgan_tpu_torch.ops import kernels
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
-    bound_by_ms = {"bytes": 0.0, "operations": 0.0}
-    cases = [(lbl, shp, relu, res, n, torch.float32, 0.0) for lbl, shp, relu, res, n in IN_SITES]
-    cases += [(lbl, shp, relu, res, 0, torch.bfloat16, 0.0) for lbl, shp, relu, res, _ in IN_SITES]
-    cases += [
-        ("128^2x256 leaky 0.2", (BATCH, 256, S // 4, S // 4), True, False, 0, torch.float32, 0.2),
-        ("128^2x256 no act", (BATCH, 256, S // 4, S // 4), False, False, 0, torch.float32, 0.0),
-    ]
-    for label, shape, relu, has_res, per_forward, dtype, slope in cases:
-        x = _randn(shape, dtype, gen, mean=0.5)
-        res = _randn(shape, dtype, gen) if has_res else None
+    x32 = x.float()
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    inv = torch.rsqrt((x32 * x32).mean(dim=(2, 3), keepdim=True) - mean * mean + kernels.EPS)
+    at = ((x32 - mean) * inv).abs() <= KINK
+    return g.masked_fill(at, 0), int(at.sum())
+
+
+def _close(got, want, dtype, tol_f32):
+    """(max abs error, within tolerance): f32 within tol_f32; bf16 within
+    TOL_BF16 plus one bf16 ulp of the plain value."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if dtype == torch.float32:
+        return err, err <= tol_f32
+    return err, bool((diff <= TOL_BF16 + BF16_RTOL * want.float().abs()).all())
+
+
+def _tol_text(dtype, tol_f32) -> str:
+    return f"{tol_f32:g}" if dtype == torch.float32 else f"{TOL_BF16:g} + 2^-7 |y|"
+
+
+def _fmt(ms) -> str:
+    return "null" if ms is None else f"{ms:.4f}"
+
+
+class _Total:
+    """A kernel's row of the JSON line, summed over the sites of one pass
+    (each site's time times its count)."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bound_ms = self.err = 0.0
+        self.by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, count, ms, plain_ms, b_ms, b_by, err):
+        self.ms += count * ms
+        self.plain_ms += count * plain_ms
+        self.bound_ms += count * b_ms
+        self.by[b_by] += count * b_ms
+        self.err = max(self.err, err)
+
+    def row(self, name, source, replaces):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": max(self.by, key=self.by.get), "library_ms": None}
+
+
+def _in_case(gen, label, shape, dtype, relu, has_res, slope, backward):
+    """One instance-norm site: K1 (or K2 with ``backward``) against its
+    plain version.  Returns (ms, plain_ms, bound_ms, bound_by, err)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    x = _randn(shape, dtype, gen, mean=0.5)
+    other = _randn(shape, dtype, gen) if (has_res or backward) else None
+    at_kink = 0
+    if backward:
+        other, at_kink = _off_kink(x, other, relu)
 
         def kern():
-            return kernels.instance_norm_act(x, relu=relu, residual=res, negative_slope=slope)
+            return kernels.instance_norm_act_bwd(x, other, relu=relu, negative_slope=slope)
 
         def plain():
-            return kernels.instance_norm_act_plain(x, relu=relu, residual=res, negative_slope=slope)
+            return kernels.instance_norm_act_bwd_plain(x, other, relu=relu, negative_slope=slope)
+    else:
+        def kern():
+            return kernels.instance_norm_act_fwd(x, relu=relu, residual=other, negative_slope=slope)
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == x.shape, f"in_act {label}: bad output")
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        if dtype == torch.float32:
-            ok, tol = err <= TOL_F32_IN, f"{TOL_F32_IN:g}"
-        else:
-            ok = bool((diff <= TOL_BF16 + BF16_RTOL * want.float().abs()).all())
-            tol = f"{TOL_BF16:g} + 2^-7 |y|"
-        ms, plain_ms = median_ms(kern), median_ms(plain)
-        lib_ms = None
-        if not relu and not has_res:
-            lib_ms = median_ms(lambda: torch.nn.functional.instance_norm(x, eps=kernels.EPS))
-        esize = x.element_size()
-        nbytes = x.numel() * esize * (3 if has_res else 2)
-        ops = x.numel() * (4 + int(relu) + int(has_res))
-        b_ms, b_by = bound_ms(nbytes, ops)
-        say("kernels", f"in_act {label} {str(dtype)[6:]} {tuple(shape)}: max_abs_err {err:.3g} "
-                       f"(tol {tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
-                       f"({b_by}) library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'}"
-                       + (f" x{per_forward} per forward" if per_forward else ""))
-        check(ok, f"in_act {label} {dtype}: max_abs_err {err} over tolerance {tol}")
-        if per_forward:
-            totals["ms"] += per_forward * ms
-            totals["plain_ms"] += per_forward * plain_ms
-            totals["bound_ms"] += per_forward * b_ms
-            bound_by_ms[b_by] += per_forward * b_ms
-            totals["err"] = max(totals["err"], err)
-        del x, res, got, want, diff
+        def plain():
+            return kernels.instance_norm_act_plain(x, relu=relu, residual=other, negative_slope=slope)
 
-    n, hw = BATCH, S * S
-    content = torch.tanh(torch.randn((n, 27, S, S), generator=gen, device="cuda"))
-    logits = 3.0 * torch.randn((n, 10, S, S), generator=gen, device="cuda")
-    x9 = torch.randn((n, 9, S, S), generator=gen, device="cuda")
-    rgb = x9[:, :3]
-    got_out, got_mask = kernels.attention_compose(content, logits, rgb)
-    want_out, want_mask = kernels.attention_compose_plain(content, logits, rgb)
+    got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = max(float((got_out - want_out).abs().max()), float((got_mask - want_mask).abs().max()))
-    ms = median_ms(lambda: kernels.attention_compose(content, logits, rgb))
-    plain_ms = median_ms(lambda: kernels.attention_compose_plain(content, logits, rgb))
-    c_bound, c_by = bound_ms((40 + 4) * n * hw * 4, 107 * n * hw)
-    say("kernels", f"attention_compose ({n},27+10+3,{S},{S}) f32: max_abs_err {err:.3g} "
-                   f"(tol {TOL_F32:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {c_bound:.4f} "
-                   f"({c_by}) library_ms null")
-    check(err <= TOL_F32, f"attention_compose: max_abs_err {err} over tolerance {TOL_F32}")
-    del content, logits, x9, rgb, got_out, got_mask, want_out, want_mask
+    check(got.dtype == dtype and got.shape == x.shape, f"{label}: bad output")
+    err, ok = _close(got, want, dtype, TOL_F32_IN)
+    ms, plain_ms = median_ms(kern), median_ms(plain)
+    lib_ms = None
+    if not relu:
+        # The no-activation IN: F.instance_norm forward, or its backward
+        # alone (a residual site's input gradient is the same function).
+        if backward:
+            xr = x.detach().requires_grad_()
+            yl = torch.nn.functional.instance_norm(xr, eps=kernels.EPS)
+            lib_ms = median_ms(lambda: torch.autograd.grad(yl, xr, other, retain_graph=True))
+            del xr, yl
+        elif not has_res:
+            lib_ms = median_ms(lambda: torch.nn.functional.instance_norm(x, eps=kernels.EPS))
+    n_io = 3 if (has_res or backward) else 2
+    ops = x.numel() * ((13 + int(relu)) if backward else (4 + int(relu) + int(has_res)))
+    b_ms, b_by = bound_ms(x.numel() * x.element_size() * n_io, ops)
+    name = "in_bwd" if backward else "in_act"
+    kink = f", g zeroed at {at_kink} of {x.numel()} on the kink" if backward and relu else ""
+    say("kernels", f"{name} {label} {str(dtype)[6:]} {tuple(shape)}: max_abs_err {err:.3g} "
+                   f"(tol {_tol_text(dtype, TOL_F32_IN)}{kink}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                   f"bound_ms {b_ms:.4f} ({b_by}) library_ms {_fmt(lib_ms)}")
+    check(ok, f"{name} {label} {dtype}: max_abs_err {err} over tolerance")
+    del x, other, got, want
+    return ms, plain_ms, b_ms, b_by, err
 
-    say("kernels", f"in_act, the 25 f32 sites of one batch-8 {S}^2 forward: ms {totals['ms']:.4f} "
-                   f"plain_ms {totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f}")
+
+def _compose_inputs(gen, n, h, w, dtype):
+    content = torch.tanh(torch.randn((n, 27, h, w), generator=gen, device="cuda")).to(dtype)
+    logits = (3.0 * torch.randn((n, 10, h, w), generator=gen, device="cuda")).to(dtype)
+    x9 = torch.randn((n, 9, h, w), generator=gen, device="cuda").to(dtype)
+    gout = torch.randn((n, 3, h, w), generator=gen, device="cuda").to(dtype)
+    gmask = torch.randn((n, h, w), generator=gen, device="cuda").to(dtype)
+    return content, logits, x9[:, :3], gout, gmask
+
+
+def _compose_case(gen, dtype, backward, with_gmask=False, rgb_grad=False):
+    """K3 (or K4 with ``backward``) at batch 8, 512^2, rgb the channel slice
+    of a 9-channel input.  Returns (ms, plain_ms, bound_ms, bound_by, err)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    content, logits, rgb, gout, gmask = _compose_inputs(gen, BATCH, S, S, dtype)
+    gm = gmask if with_gmask else None
+    if backward:
+        def kern():
+            return kernels.attention_compose_bwd(content, logits, rgb, gout, gm, rgb_grad)
+
+        def plain():
+            return kernels.attention_compose_bwd_plain(content, logits, rgb, gout, gm, rgb_grad)
+        # read: content, logits, rgb, gout (+ gmask); write: dcontent, dlogits (+ drgb)
+        planes = 27 + 10 + 3 + 3 + int(with_gmask) + 27 + 10 + 3 * int(rgb_grad)
+        ops_px = 150
+        label = f"attention_compose_bwd gmask {'yes' if with_gmask else 'no'} drgb {'yes' if rgb_grad else 'no'}"
+    else:
+        def kern():
+            return kernels.attention_compose_fwd(content, logits, rgb)
+
+        def plain():
+            return kernels.attention_compose_plain(content, logits, rgb)
+        planes, ops_px, label = 40 + 4, 107, "attention_compose"
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if backward:
+        check((got[2] is None) == (not rgb_grad), f"{label}: drgb presence")
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        check(g.dtype == dtype and g.shape == w.shape, f"{label}: bad output")
+        e, o = _close(g, w, dtype, TOL_F32)
+        err, ok = max(err, e), ok and o
+    ms, plain_ms = median_ms(kern), median_ms(plain)
+    b_ms, b_by = bound_ms(planes * BATCH * S * S * content.element_size(), ops_px * BATCH * S * S)
+    say("kernels", f"{label} ({BATCH},27+10+3,{S},{S}) {str(dtype)[6:]}: max_abs_err {err:.3g} "
+                   f"(tol {_tol_text(dtype, TOL_F32)}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                   f"bound_ms {b_ms:.4f} ({b_by}) library_ms null")
+    check(ok, f"{label} {dtype}: max_abs_err {err} over tolerance")
+    del content, logits, rgb, gout, gmask, got, want
+    return ms, plain_ms, b_ms, b_by, err
+
+
+def phase_kernels() -> dict:
+    """Every kernel at the main paths' shapes.  Returns the JSON rows by
+    kernel name: in_act and attention_compose over one f32 serving
+    forward (as in the first slice), in_bwd and attention_compose_bwd over
+    one bf16 train step."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    serve_in, train_in, train_bwd = _Total(), _Total(), _Total()
+
+    for label, shape, relu, res, n in IN_SITES:
+        serve_in.add(n, *_in_case(gen, label, shape, f32, relu, res, 0.0, False))
+    for label, shape, relu, res, n in IN_SITES:
+        train_in.add(n, *_in_case(gen, label, shape, bf16, relu, res, 0.0, False))
+    for label, shape in D_SITES:
+        train_in.add(D_READS, *_in_case(gen, label, shape, bf16, True, False, 0.2, False))
+    for label, shape, relu, res in (
+        ("128^2x256 leaky 0.2", (BATCH, 256, S // 4, S // 4), True, False),
+        ("128^2x256 no act", (BATCH, 256, S // 4, S // 4), False, False),
+    ):
+        _in_case(gen, label, shape, f32, relu, res, 0.2 if relu else 0.0, False)
+
+    # K2: the backward of each site; a residual site's input gradient is
+    # the no-activation backward (the residual takes g itself).
+    for dtype in (f32, bf16):
+        for label, shape, relu, _, n in IN_SITES:
+            r = _in_case(gen, label.replace("residual", "no act (residual)"), shape, dtype,
+                         relu, False, 0.0, True)
+            if dtype == bf16:
+                train_bwd.add(n, *r)
+        for label, shape in D_SITES:
+            r = _in_case(gen, label, shape, dtype, True, False, 0.2, True)
+            if dtype == bf16:
+                train_bwd.add(D_READS, *r)
+
+    compose = _compose_case(gen, f32, False)
+    _compose_case(gen, bf16, False)
+    for dtype in (f32, bf16):
+        _compose_case(gen, dtype, True, with_gmask=True, rgb_grad=True)
+    _compose_case(gen, f32, True)
+    compose_bwd = _compose_case(gen, bf16, True)  # the train step's case
+
+    say("kernels", f"in_act, the 25 f32 sites of one batch-{BATCH} {S}^2 forward: ms {serve_in.ms:.4f} "
+                   f"plain_ms {serve_in.plain_ms:.4f} bound_ms {serve_in.bound_ms:.4f}")
+    say("kernels", f"in_act, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_in.ms:.4f} "
+                   f"plain_ms {train_in.plain_ms:.4f} bound_ms {train_in.bound_ms:.4f}")
+    say("kernels", f"in_bwd, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_bwd.ms:.4f} "
+                   f"plain_ms {train_bwd.plain_ms:.4f} bound_ms {train_bwd.bound_ms:.4f}")
     phase_kernel_edges(gen)
-    return [
-        {"name": "in_act", "route": "cuda", "source": "floodgan_tpu_torch/csrc/instance_norm.cu",
-         "replaces": "floodgan_tpu/ops/pallas_kernels.py:53", "launches": None,
-         "max_abs_err": totals["err"], "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-         "bound_ms": totals["bound_ms"], "bound_by": max(bound_by_ms, key=bound_by_ms.get),
-         "library_ms": None},
-        {"name": "attention_compose", "route": "cuda",
-         "source": "floodgan_tpu_torch/csrc/attention_compose.cu",
-         "replaces": "floodgan_tpu/ops/pallas_kernels.py:272", "launches": None,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": c_bound,
-         "bound_by": c_by, "library_ms": None},
-    ]
+
+    def single(name, source, replaces, r):
+        ms, plain_ms, b_ms, b_by, err = r
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    in_src = "floodgan_tpu_torch/csrc/instance_norm.cu"
+    co_src = "floodgan_tpu_torch/csrc/attention_compose.cu"
+    return {
+        "in_act": serve_in.row("in_act", in_src, "floodgan_tpu/ops/pallas_kernels.py:53"),
+        "in_bwd": train_bwd.row("in_bwd", in_src, "floodgan_tpu/ops/pallas_kernels.py:109"),
+        "compose": single("attention_compose", co_src, "floodgan_tpu/ops/pallas_kernels.py:272", compose),
+        "compose_bwd": single("attention_compose_bwd", co_src,
+                              "floodgan_tpu/ops/pallas_kernels.py:317", compose_bwd),
+    }
 
 
 def phase_kernel_edges(gen) -> None:
-    """Shapes off the serving path: H*W not a multiple of the vector width
+    """Shapes off the main paths: H*W not a multiple of the vector width
     (scalar tail; misaligned planes after the first), and rgb as the
-    channel slice of an odd-sized input."""
+    channel slice of an odd-sized input, forward and backward."""
     from floodgan_tpu_torch.ops import kernels
 
-    worst = 0.0
+    worst = {"in_act": 0.0, "in_bwd": 0.0, "compose": 0.0, "compose_bwd": 0.0}
     for dtype, tol in ((torch.float32, TOL_F32_IN), (torch.bfloat16, TOL_BF16)):
         for shape in ((2, 5, 13, 11), (1, 3, 1, 7), (3, 4, 33, 35)):
             x = _randn(shape, dtype, gen, mean=0.5)
             res = _randn(shape, dtype, gen)
             for relu, r, slope in ((True, None, 0.0), (False, res, 0.0), (True, res, 0.2)):
-                got = kernels.instance_norm_act(x, relu=relu, residual=r, negative_slope=slope)
-                want = kernels.instance_norm_act_plain(x, relu=relu, residual=r, negative_slope=slope)
-                diff = (got.float() - want.float()).abs()
-                bad = diff > tol + (BF16_RTOL * want.float().abs() if dtype == torch.bfloat16 else 0)
-                check(not bool(bad.any()),
-                      f"in_act {shape} {dtype} relu={relu} slope={slope}: max_abs_err {float(diff.max())}")
-                if dtype == torch.float32:
-                    worst = max(worst, float(diff.max()))
-    x9 = torch.randn((2, 9, 13, 11), generator=gen, device="cuda")
-    content = torch.tanh(torch.randn((2, 27, 13, 11), generator=gen, device="cuda"))
-    logits = torch.randn((2, 10, 13, 11), generator=gen, device="cuda")
-    got = kernels.attention_compose(content, logits, x9[:, :3])
-    want = kernels.attention_compose_plain(content, logits, x9[:, :3])
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    check(err <= TOL_F32, f"attention_compose at 13x11: max_abs_err {err}")
+                g, _ = _off_kink(x, res, relu)
+                for name, got, want in (
+                    ("in_act", kernels.instance_norm_act_fwd(x, relu=relu, residual=r, negative_slope=slope),
+                     kernels.instance_norm_act_plain(x, relu=relu, residual=r, negative_slope=slope)),
+                    ("in_bwd", kernels.instance_norm_act_bwd(x, g, relu=relu, negative_slope=slope),
+                     kernels.instance_norm_act_bwd_plain(x, g, relu=relu, negative_slope=slope)),
+                ):
+                    err, ok = _close(got, want, dtype, tol)
+                    check(ok, f"{name} {shape} {dtype} relu={relu} slope={slope}: max_abs_err {err}")
+                    worst[name] = max(worst[name], err)
+        content, logits, rgb, gout, gmask = _compose_inputs(gen, 2, 13, 11, dtype)
+        pairs = [("compose", kernels.attention_compose_fwd(content, logits, rgb),
+                  kernels.attention_compose_plain(content, logits, rgb))]
+        for gm, rgb_grad in ((gmask, True), (None, False)):
+            pairs.append(("compose_bwd",
+                          kernels.attention_compose_bwd(content, logits, rgb, gout, gm, rgb_grad),
+                          kernels.attention_compose_bwd_plain(content, logits, rgb, gout, gm, rgb_grad)))
+        for name, got, want in pairs:
+            for g, w in zip(got, want):
+                check((g is None) == (w is None), f"{name} at 13x11: drgb presence")
+                if g is not None:
+                    err, ok = _close(g, w, dtype, TOL_F32)
+                    check(ok, f"{name} at 13x11 {dtype}: max_abs_err {err}")
+                    worst[name] = max(worst[name], err)
     torch.cuda.synchronize()
-    say("kernels", f"edge shapes (odd H*W, scalar tails, strided rgb): in_act f32 max_abs_err "
-                   f"{worst:.3g}, bf16 within tolerance; attention_compose max_abs_err {err:.3g}")
+    say("kernels", "edge shapes (odd H*W, scalar tails, strided rgb, f32 and bf16) within tolerance; "
+                   "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 def _state_dict():
@@ -274,8 +461,7 @@ def phase_engine(sd, smi):
         out = eng.predict(x)
         torch.cuda.synchronize()
         counts = dict(kernels.LAUNCHES)
-        check(counts == {"in_act": 25, "compose": 1},
-              f"batch {b}: one predict launched {counts}, expected 25 in_act and 1 compose")
+        check(counts == SERVE_LAUNCHES, f"batch {b}: one predict launched {counts}, expected {SERVE_LAUNCHES}")
         check(out.device.type == "cuda" and tuple(out.shape) == (b, S, S, 3),
               f"batch {b}: output {tuple(out.shape)} on {out.device}")
         check(bool(torch.isfinite(out).all()), f"batch {b}: non-finite output")
@@ -322,8 +508,8 @@ def phase_requests(engine) -> dict:
     check(not errors and not any(t.is_alive() for t in threads), f"requests failed: {errors}")
     check(stats["requests"] == 12, f"frontend counted {stats['requests']} requests")
     batches = stats["batches"]
-    check(counts == {"in_act": 25 * batches, "compose": batches},
-          f"{batches} batches launched {counts}, expected {25 * batches} in_act, {batches} compose")
+    want = {k: v * batches for k, v in SERVE_LAUNCHES.items()}
+    check(counts == want, f"{batches} batches launched {counts}, expected {want}")
 
     # Each answer against engine.predict of a zero-padded batch holding it.
     worst = 0.0
@@ -354,20 +540,106 @@ def phase_card_vs_cpu(sd) -> None:
     check(diff <= 1e-3, f"card and CPU forwards differ by {diff}")
 
 
+def _train_inputs(rng, b, size):
+    return (rng.uniform(-1.0, 1.0, (b, size, size, 9)).astype(np.float32),
+            rng.uniform(-1.0, 1.0, (b, size, size, 3)).astype(np.float32))
+
+
+def _changed(module, start) -> tuple:
+    """(weight tensors changed, weight tensors, all tensors changed, all)."""
+    sd = module.state_dict()
+    moved = {k for k, v in sd.items() if not torch.equal(v, start[k])}
+    weights = [k for k in sd if k.endswith("weight")]
+    return sum(k in moved for k in weights), len(weights), len(moved), len(sd)
+
+
+def phase_train(smi) -> dict:
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    x, y = _train_inputs(np.random.default_rng(SEED + 3), BATCH, S)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    t0 = time.perf_counter()
+    trainer = PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED)
+    setup = time.perf_counter() - t0
+    start = {m: {k: v.clone() for k, v in getattr(trainer, m).state_dict().items()}
+             for m in ("generator", "discriminator")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    trainer.train_step(x, y, LR)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    check(counts == TRAIN_STEP_LAUNCHES, f"one train step launched {counts}, expected {TRAIN_STEP_LAUNCHES}")
+
+    for _ in range(4):
+        metrics = trainer.train_step(x, y, LR)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in losses.values()), f"non-finite losses after 5 steps: {losses}")
+    moved = {m: _changed(getattr(trainer, m), start[m]) for m in start}
+    for m, (w_moved, w_all, moved_all, n_all) in moved.items():
+        check(w_moved == w_all, f"{m}: only {w_moved} of {w_all} weight tensors changed in 5 steps")
+
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        trainer.train_step(x, y, LR)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    say("train", f"PairedAttention {S}^2 batch {BATCH} bf16, seed {SEED}: one step launched {counts}; "
+                 f"set-up {setup:.2f} s")
+    say("train", f"after 5 steps: losses {json.dumps(losses)}; tensors changed: " + ", ".join(
+        f"{m} {mv[2]}/{mv[3]} (weights {mv[0]}/{mv[1]})" for m, mv in moved.items()))
+    say("train", f"step ms median {step_ms:.3f} over 10 (min {min(times) * 1e3:.3f}, "
+                 f"max {max(times) * 1e3:.3f}), {BATCH / (step_ms / 1e3):.3f} samples/s, "
+                 f"peak memory {peak / 2**30:.3f} GiB ({smi})")
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_card_vs_cpu() -> None:
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    size, b = 64, 2
+    x, y = _train_inputs(np.random.default_rng(SEED + 4), b, size)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = PairedTrainer("pairedattention", 9, compute_dtype="float32", device=dev, seed=SEED)
+        runs[dev] = [{k: float(v) for k, v in trainer.train_step(x, y, LR).items()} for _ in range(2)]
+    rel = [{k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+           for card, cpu in zip(runs["cuda"], runs["cpu"])]
+    for step, tol in ((1, TOL_TRAIN_STEP1), (2, TOL_TRAIN_STEP2)):
+        say("train card-cpu", f"{size}^2 batch {b} f32 (TF32 off), step {step}: card "
+                              f"{json.dumps(runs['cuda'][step - 1])} cpu {json.dumps(runs['cpu'][step - 1])}; "
+                              f"max rel diff {max(rel[step - 1].values()):.3g} (tol {tol:g})")
+    for step, tol in ((1, TOL_TRAIN_STEP1), (2, TOL_TRAIN_STEP2)):
+        check(max(rel[step - 1].values()) <= tol,
+              f"step {step}: card and CPU losses differ by {rel[step - 1]} (tol {tol})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    table = phase_kernels()
+    rows = phase_kernels()
     sd = _state_dict()
     engine = phase_engine(sd, smi)
-    counts = phase_requests(engine)
-    table[0]["launches"] = counts["in_act"]
-    table[1]["launches"] = counts["compose"]
-    check(all(row["launches"] > 0 for row in table), f"a kernel of the path never ran: {counts}")
+    serve_counts = phase_requests(engine)
+    del engine
     phase_card_vs_cpu(sd)
+    train_counts = phase_train(smi)
+    for k, row in rows.items():
+        row["launches"] = serve_counts[k] + train_counts[k]
+    check(all(row["launches"] > 0 for row in rows.values()),
+          f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}")
+    phase_train_card_vs_cpu()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by one nvcc call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds).  The library lands in ``floodgan_tpu_torch/build/`` under a name
-that carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
-import: the first launch on a CUDA tensor calls ``library()``.  A missing
-nvcc or a failed build raises with the compiler's output.
+Each ``csrc/*.cu`` file is compiled by its own nvcc call, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds).  The library
+lands in ``floodgan_tpu_torch/build/`` under a name that carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  Nothing here runs at import: the first launch on a
+CUDA tensor calls ``library()``.  A missing nvcc or a failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Tuple
@@ -26,9 +28,10 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills per kernel, into the build log
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
@@ -38,8 +41,16 @@ SIGNATURES = {
     # x, residual (or NULL), y, planes, hw, relu, slope, eps, stream
     "floodgan_in_act_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
     "floodgan_in_act_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    # x, g, dx, planes, hw, relu, slope, eps, stream
+    "floodgan_in_bwd_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    "floodgan_in_bwd_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
     # content, logits, rgb, out, mask, batch, hw, rgb batch stride, stream
     "floodgan_attention_compose_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "floodgan_attention_compose_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # content, logits, rgb, gout, gmask (or NULL), dcontent, dlogits,
+    # drgb (or NULL), batch, hw, rgb batch stride, stream
+    "floodgan_attention_compose_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "floodgan_attention_compose_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()
@@ -51,7 +62,7 @@ def sources() -> list:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -75,6 +86,20 @@ def find_nvcc() -> str:
     )
 
 
+def _run_all(cmds) -> str:
+    """Run the commands together; wait for every one.  Returns their
+    output, or raises with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}"
+            )
+    return "".join(outs)
+
+
 def build() -> Tuple[Path, str]:
     """Compile the kernels unless the library for the current sources
     exists.  Returns (library path, compiler output; "" when reused)."""
@@ -82,17 +107,15 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{out.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sources(), objs)])
+        tmp = Path(tmpdir) / out.name
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]])
+        os.replace(tmp, out)
+    return out, log
 
 
 def library() -> ctypes.CDLL:

@@ -1,10 +1,17 @@
-"""The two hand-written CUDA kernels of the serving path, their plain
-PyTorch versions and their launch counters.
+"""The hand-written CUDA kernels of the port, their plain PyTorch versions,
+their autograd Functions and their launch counters.
 
-- ``instance_norm_act`` (csrc/instance_norm.cu) replaces the TPU kernel
-  ``_in_fwd_kernel`` of floodgan_tpu/ops/pallas_kernels.py;
-- ``attention_compose`` (csrc/attention_compose.cu) replaces
-  ``_compose_kernel`` of the same file.
+- ``instance_norm_act_fwd`` (csrc/instance_norm.cu, K1) replaces the TPU
+  kernel ``_in_fwd_kernel`` of floodgan_tpu/ops/pallas_kernels.py, and
+  ``instance_norm_act_bwd`` (K2, same file) replaces ``_in_bwd_kernel``;
+- ``attention_compose_fwd`` (csrc/attention_compose.cu, K3) replaces
+  ``_compose_kernel``, and ``attention_compose_bwd`` (K4, same file)
+  replaces ``_compose_bwd_kernel``.
+
+``InstanceNormAct`` and ``AttentionCompose`` pair each forward with its
+backward, as the JAX package's custom VJPs do; ``instance_norm_act`` and
+``attention_compose`` are the entry points the models call.  With grad
+disabled they launch the forward kernels only.
 
 A wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises: a failed build, a refused
@@ -23,7 +30,7 @@ import torch
 
 from floodgan_tpu_torch.ops import _build
 
-LAUNCHES = {"in_act": 0, "compose": 0}
+LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0}
 
 EPS = 1e-5
 
@@ -43,7 +50,27 @@ def _cuda_operand(t: torch.Tensor, like: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} is {t.dtype}, expected {like.dtype}")
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """The kernels' arithmetic type: f32, or wider for a wider input (the
+    float64 gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 # ============================================================ instance norm
+
+_IN_ENTRY = {torch.float32: "floodgan_in_act_f32", torch.bfloat16: "floodgan_in_act_bf16"}
+_IN_BWD_ENTRY = {torch.float32: "floodgan_in_bwd_f32", torch.bfloat16: "floodgan_in_bwd_bf16"}
+
+
+def _plane_stats(x32: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    meansq = (x32 * x32).mean(dim=(2, 3), keepdim=True)
+    return mean, torch.rsqrt(meansq - mean * mean + eps)
+
 
 def instance_norm_act_plain(
     x: torch.Tensor,
@@ -56,45 +83,71 @@ def instance_norm_act_plain(
     ``where(y >= 0, y, slope * y)`` + optional residual, on NCHW.  The
     kernel's arithmetic: f32 statistics in the E[x^2] - mean^2 form, f32
     apply, one cast to x's dtype at the end."""
-    x32 = x.float()
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    meansq = (x32 * x32).mean(dim=(2, 3), keepdim=True)
-    inv = torch.rsqrt(meansq - mean * mean + eps)
+    x32 = _f32(x)
+    mean, inv = _plane_stats(x32, eps)
     y = (x32 - mean) * inv
     if relu:
         y = torch.where(y >= 0.0, y, y * negative_slope)
     if residual is not None:
-        y = y + residual.float()
+        y = y + _f32(residual)
     return y.to(x.dtype)
 
 
-_IN_ENTRY = {torch.float32: "floodgan_in_act_f32", torch.bfloat16: "floodgan_in_act_bf16"}
+def instance_norm_act_bwd_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    relu: bool = False,
+    negative_slope: float = 0.0,
+    eps: float = EPS,
+) -> torch.Tensor:
+    """dx of ``instance_norm_act_plain`` from its input x and the gradient
+    g of its output, in K2's order: the statistics again, yhat, g~ = g *
+    (yhat >= 0 ? 1 : slope) with the activation on, then dx = inv * (g~ -
+    mean(g~) - yhat * mean(g~ * yhat)); f32, one cast to x's dtype.  The
+    residual's gradient is g itself."""
+    x32 = _f32(x)
+    g32 = _f32(g)
+    mean, inv = _plane_stats(x32, eps)
+    yh = (x32 - mean) * inv
+    if relu:
+        g32 = torch.where(yh >= 0.0, g32, g32 * negative_slope)
+    mg = g32.mean(dim=(2, 3), keepdim=True)
+    mgy = (g32 * yh).mean(dim=(2, 3), keepdim=True)
+    return (inv * (g32 - mg - yh * mgy)).to(x.dtype)
 
 
-def instance_norm_act(
+def _in_cuda_checks(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected NCHW, got shape {tuple(x.shape)}")
+    if x.dtype not in _IN_ENTRY:
+        raise ValueError(f"{name}: no kernel for {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be NCHW-contiguous")
+
+
+def _same_layout(t: torch.Tensor, x: torch.Tensor, what: str, name: str) -> None:
+    _cuda_operand(t, x, what)
+    if t.shape != x.shape or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous and of x's shape")
+
+
+def instance_norm_act_fwd(
     x: torch.Tensor,
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     negative_slope: float = 0.0,
     eps: float = EPS,
 ) -> torch.Tensor:
-    """IN(+activation)(+residual) over an NCHW tensor: the CUDA kernel for
-    a CUDA tensor (f32 or bf16, contiguous), the plain version for a CPU
-    tensor.  With both, the activation applies before the add."""
+    """K1: IN(+activation)(+residual) over an NCHW tensor: the CUDA kernel
+    for a CUDA tensor (f32 or bf16, contiguous), the plain version for a
+    CPU tensor.  With both, the activation applies before the add."""
     if x.device.type == "cpu":
         return instance_norm_act_plain(x, relu, residual, negative_slope, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"instance_norm_act: no kernel for device {x.device}")
-    if x.dim() != 4:
-        raise ValueError(f"instance_norm_act: expected NCHW, got shape {tuple(x.shape)}")
-    if x.dtype not in _IN_ENTRY:
-        raise ValueError(f"instance_norm_act: no kernel for {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("instance_norm_act: x must be NCHW-contiguous")
+    _in_cuda_checks(x, "instance_norm_act")
     if residual is not None:
-        _cuda_operand(residual, x, "residual")
-        if residual.shape != x.shape or not residual.is_contiguous():
-            raise ValueError("instance_norm_act: residual must be contiguous and of x's shape")
+        _same_layout(residual, x, "residual", "instance_norm_act")
     n, c, h, w = x.shape
     y = torch.empty_like(x)
     if y.numel() == 0:
@@ -110,14 +163,101 @@ def instance_norm_act(
             int(relu),
             float(negative_slope),
             float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            _stream(x),
         )
     _check_launch(err, "instance_norm_act")
     LAUNCHES["in_act"] += 1
     return y
 
 
+def instance_norm_act_bwd(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    relu: bool = False,
+    negative_slope: float = 0.0,
+    eps: float = EPS,
+) -> torch.Tensor:
+    """K2: dx of ``instance_norm_act_fwd`` from the saved input x and the
+    output's gradient g: the CUDA kernel for CUDA tensors (f32 or bf16,
+    both contiguous, of one dtype and shape), the plain version for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return instance_norm_act_bwd_plain(x, g, relu, negative_slope, eps)
+    _in_cuda_checks(x, "instance_norm_act_bwd")
+    _same_layout(g, x, "g", "instance_norm_act_bwd")
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    fn = getattr(_build.library(), _IN_BWD_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(),
+            g.data_ptr(),
+            dx.data_ptr(),
+            n * c,
+            h * w,
+            int(relu),
+            float(negative_slope),
+            float(eps),
+            _stream(x),
+        )
+    _check_launch(err, "instance_norm_act_bwd")
+    LAUNCHES["in_bwd"] += 1
+    return dx
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """K1 forward, K2 backward.  Saves the pre-norm x only, as
+    ``_fused_in_fwd`` does; the backward recomputes the statistics.  The
+    residual's gradient passes g through."""
+
+    @staticmethod
+    def forward(ctx, x, residual, relu, negative_slope, eps):
+        ctx.save_for_backward(x)
+        ctx.args = (relu, negative_slope, eps)
+        ctx.has_residual = residual is not None
+        return instance_norm_act_fwd(x, relu, residual, negative_slope, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        relu, negative_slope, eps = ctx.args
+        g = g.contiguous()  # autograd may hand over a view
+        dx = instance_norm_act_bwd(x, g, relu, negative_slope, eps) if ctx.needs_input_grad[0] else None
+        dres = g if ctx.has_residual and ctx.needs_input_grad[1] else None
+        return dx, dres, None, None, None
+
+
+def instance_norm_act(
+    x: torch.Tensor,
+    relu: bool = False,
+    residual: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.0,
+    eps: float = EPS,
+) -> torch.Tensor:
+    """IN(+activation)(+residual) over NCHW, differentiable: K1 forward and
+    K2 backward on the card, the plain versions on the CPU."""
+    return InstanceNormAct.apply(x, residual, relu, negative_slope, eps)
+
+
 # ======================================================== attention compose
+
+_COMPOSE_ENTRY = {
+    torch.float32: "floodgan_attention_compose_f32",
+    torch.bfloat16: "floodgan_attention_compose_bf16",
+}
+_COMPOSE_BWD_ENTRY = {
+    torch.float32: "floodgan_attention_compose_bwd_f32",
+    torch.bfloat16: "floodgan_attention_compose_bwd_bf16",
+}
+
+
+def _softmax10(attn_logits: torch.Tensor) -> torch.Tensor:
+    logits = _f32(attn_logits)
+    e = torch.exp(logits - logits.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
 
 def attention_compose_plain(
     content: torch.Tensor, attn_logits: torch.Tensor, rgb: torch.Tensor
@@ -125,11 +265,9 @@ def attention_compose_plain(
     """(content (N,27,H,W) tanh'd, logits (N,10,H,W), rgb (N,3,H,W)) ->
     (output (N,3,H,W), background mask (N,H,W)), in the kernel's order:
     f32 softmax, then rgb * a_9 plus the nine content * a_k terms."""
-    c = content.float()
-    r = rgb.float()
-    logits = attn_logits.float()
-    e = torch.exp(logits - logits.amax(dim=1, keepdim=True))
-    a = e / e.sum(dim=1, keepdim=True)
+    c = _f32(content)
+    r = _f32(rgb)
+    a = _softmax10(attn_logits)
     cols = []
     for ch in range(3):
         acc = r[:, ch] * a[:, 9]
@@ -139,38 +277,78 @@ def attention_compose_plain(
     return torch.stack(cols, dim=1).to(content.dtype), a[:, 9].to(content.dtype)
 
 
-def attention_compose(
-    content: torch.Tensor, attn_logits: torch.Tensor, rgb: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The AttentionGAN composition head: the CUDA kernel for CUDA tensors
-    (f32; ``rgb`` may be the channel slice ``x[:, :3]`` of a contiguous
-    NCHW input), the plain version for CPU tensors."""
-    if content.device.type == "cpu":
-        return attention_compose_plain(content, attn_logits, rgb)
+def attention_compose_bwd_plain(
+    content: torch.Tensor,
+    attn_logits: torch.Tensor,
+    rgb: torch.Tensor,
+    gout: torch.Tensor,
+    gmask: Optional[torch.Tensor] = None,
+    rgb_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dcontent, dlogits, drgb) of ``attention_compose_plain`` from its
+    inputs and the gradients of its two outputs, in K4's order: the softmax
+    again; dcontent[3k+c] = gout_c * a_k; da_k = sum_c gout_c *
+    content[3k+c]; da_9 = gmask + sum_c gout_c * rgb_c; dlogits = a * (da -
+    sum_j a_j da_j); drgb = gout * a_9.  ``gmask=None`` means zero;
+    ``rgb_grad=False`` gives drgb None."""
+    c = _f32(content)
+    r = _f32(rgb)
+    go = _f32(gout)
+    a = _softmax10(attn_logits)
+    dcontent, da = [], []
+    for k in range(9):
+        acc = torch.zeros_like(a[:, 0])
+        for ch in range(3):
+            dcontent.append(go[:, ch] * a[:, k])
+            acc = acc + go[:, ch] * c[:, 3 * k + ch]
+        da.append(acc)
+    acc = _f32(gmask) if gmask is not None else torch.zeros_like(a[:, 0])
+    for ch in range(3):
+        acc = acc + go[:, ch] * r[:, ch]
+    da.append(acc)
+    da = torch.stack(da, dim=1)
+    dlogits = a * (da - (a * da).sum(dim=1, keepdim=True))
+    drgb = (go * a[:, 9:10]).to(rgb.dtype) if rgb_grad else None
+    return torch.stack(dcontent, dim=1).to(content.dtype), dlogits.to(attn_logits.dtype), drgb
+
+
+def _compose_cuda_checks(content, attn_logits, rgb, name: str) -> None:
     if content.device.type != "cuda":
-        raise ValueError(f"attention_compose: no kernel for device {content.device}")
-    if content.dtype != torch.float32:
-        raise ValueError(f"attention_compose: no kernel for {content.dtype}")
+        raise ValueError(f"{name}: no kernel for device {content.device}")
+    if content.dtype not in _COMPOSE_ENTRY:
+        raise ValueError(f"{name}: no kernel for {content.dtype}")
     _cuda_operand(attn_logits, content, "attn_logits")
     _cuda_operand(rgb, content, "rgb")
     n, cc, h, w = content.shape
-    hw = h * w
     if cc != 27 or attn_logits.shape != (n, 10, h, w) or rgb.shape != (n, 3, h, w):
         raise ValueError(
-            "attention_compose: expected content (N,27,H,W), logits (N,10,H,W), rgb (N,3,H,W); "
+            f"{name}: expected content (N,27,H,W), logits (N,10,H,W), rgb (N,3,H,W); "
             f"got {tuple(content.shape)}, {tuple(attn_logits.shape)}, {tuple(rgb.shape)}"
         )
     if n > 65535:
-        raise ValueError(f"attention_compose: batch {n} exceeds the grid's 65535")
+        raise ValueError(f"{name}: batch {n} exceeds the grid's 65535")
     if not (content.is_contiguous() and attn_logits.is_contiguous()):
-        raise ValueError("attention_compose: content and logits must be NCHW-contiguous")
-    if rgb.stride()[1:] != (hw, w, 1):
-        raise ValueError(f"attention_compose: rgb planes must be contiguous, strides {rgb.stride()}")
+        raise ValueError(f"{name}: content and logits must be NCHW-contiguous")
+    if rgb.stride()[1:] != (h * w, w, 1):
+        raise ValueError(f"{name}: rgb planes must be contiguous, strides {rgb.stride()}")
+
+
+def attention_compose_fwd(
+    content: torch.Tensor, attn_logits: torch.Tensor, rgb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3, the AttentionGAN composition head: the CUDA kernel for CUDA
+    tensors (f32 or bf16, one dtype; ``rgb`` may be the channel slice
+    ``x[:, :3]`` of a contiguous NCHW input), the plain version for CPU
+    tensors."""
+    if content.device.type == "cpu":
+        return attention_compose_plain(content, attn_logits, rgb)
+    _compose_cuda_checks(content, attn_logits, rgb, "attention_compose")
+    n, _, h, w = content.shape
     out = torch.empty((n, 3, h, w), device=content.device, dtype=content.dtype)
     mask = torch.empty((n, h, w), device=content.device, dtype=content.dtype)
     if out.numel() == 0:
         return out, mask
-    fn = _build.library().floodgan_attention_compose_f32
+    fn = getattr(_build.library(), _COMPOSE_ENTRY[content.dtype])
     with torch.cuda.device(content.device):
         err = fn(
             content.data_ptr(),
@@ -179,10 +357,98 @@ def attention_compose(
             out.data_ptr(),
             mask.data_ptr(),
             n,
-            hw,
+            h * w,
             rgb.stride(0),
-            torch.cuda.current_stream(content.device).cuda_stream,
+            _stream(content),
         )
     _check_launch(err, "attention_compose")
     LAUNCHES["compose"] += 1
     return out, mask
+
+
+def attention_compose_bwd(
+    content: torch.Tensor,
+    attn_logits: torch.Tensor,
+    rgb: torch.Tensor,
+    gout: torch.Tensor,
+    gmask: Optional[torch.Tensor] = None,
+    rgb_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K4: (dcontent, dlogits, drgb) of ``attention_compose_fwd``: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  ``gout``
+    (N,3,H,W) and ``gmask`` (N,H,W; None means zero) are contiguous, of the
+    inputs' dtype; ``rgb_grad=False`` skips drgb and returns None for it."""
+    if content.device.type == "cpu":
+        return attention_compose_bwd_plain(content, attn_logits, rgb, gout, gmask, rgb_grad)
+    name = "attention_compose_bwd"
+    _compose_cuda_checks(content, attn_logits, rgb, name)
+    n, _, h, w = content.shape
+    _cuda_operand(gout, content, "gout")
+    if gout.shape != (n, 3, h, w) or not gout.is_contiguous():
+        raise ValueError(f"{name}: gout must be a contiguous (N,3,H,W), got {tuple(gout.shape)}")
+    if gmask is not None:
+        _cuda_operand(gmask, content, "gmask")
+        if gmask.shape != (n, h, w) or not gmask.is_contiguous():
+            raise ValueError(f"{name}: gmask must be a contiguous (N,H,W), got {tuple(gmask.shape)}")
+    dcontent = torch.empty_like(content)
+    dlogits = torch.empty_like(attn_logits)
+    drgb = torch.empty((n, 3, h, w), device=content.device, dtype=content.dtype) if rgb_grad else None
+    if dcontent.numel() == 0:
+        return dcontent, dlogits, drgb
+    fn = getattr(_build.library(), _COMPOSE_BWD_ENTRY[content.dtype])
+    with torch.cuda.device(content.device):
+        err = fn(
+            content.data_ptr(),
+            attn_logits.data_ptr(),
+            rgb.data_ptr(),
+            gout.data_ptr(),
+            gmask.data_ptr() if gmask is not None else None,
+            dcontent.data_ptr(),
+            dlogits.data_ptr(),
+            drgb.data_ptr() if drgb is not None else None,
+            n,
+            h * w,
+            rgb.stride(0),
+            _stream(content),
+        )
+    _check_launch(err, name)
+    LAUNCHES["compose_bwd"] += 1
+    return dcontent, dlogits, drgb
+
+
+class AttentionCompose(torch.autograd.Function):
+    """K3 forward, K4 backward.  Gradients autograd does not produce stay
+    absent: no gradient for the mask reaches K4 as a null gmask, and an rgb
+    that needs none (the generator input) gets no drgb."""
+
+    @staticmethod
+    def forward(ctx, content, attn_logits, rgb):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(content, attn_logits, rgb)
+        return attention_compose_fwd(content, attn_logits, rgb)
+
+    @staticmethod
+    def backward(ctx, gout, gmask):
+        content, attn_logits, rgb = ctx.saved_tensors
+        if gout is None and gmask is None:
+            return None, None, None
+        if gout is None:
+            n, _, h, w = content.shape
+            gout = torch.zeros((n, 3, h, w), device=content.device, dtype=content.dtype)
+        return attention_compose_bwd(
+            content,
+            attn_logits,
+            rgb,
+            gout.contiguous(),
+            None if gmask is None else gmask.contiguous(),
+            rgb_grad=ctx.needs_input_grad[2],
+        )
+
+
+def attention_compose(
+    content: torch.Tensor, attn_logits: torch.Tensor, rgb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The AttentionGAN composition head, differentiable: K3 forward and K4
+    backward on the card, the plain versions on the CPU.  Returns (output
+    (N,3,H,W), background mask (N,H,W))."""
+    return AttentionCompose.apply(content, attn_logits, rgb)

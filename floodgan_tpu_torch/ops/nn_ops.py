@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from floodgan_tpu_torch.ops.kernels import instance_norm_act
 
-__all__ = ["instance_norm_act", "reflect_conv2d", "reflect_pad2d"]
+__all__ = ["instance_norm_act", "leaky_relu", "reflect_conv2d", "reflect_pad2d"]
 
 
 def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -30,3 +30,8 @@ def reflect_conv2d(
     """conv2d(reflect_pad2d(x, pad), w, b) for odd k = 2*pad+1 kernels (the
     trunk's pad-1 3x3 shape); ``w`` is OIHW."""
     return F.conv2d(reflect_pad2d(x, pad), w, b)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """``where(x >= 0, x, x * slope)``, the PatchGAN's stem activation."""
+    return torch.where(x >= 0, x, x * negative_slope)

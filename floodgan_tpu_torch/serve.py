@@ -26,7 +26,6 @@ for the checkpoint slice of the port.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import queue
 import threading
@@ -38,40 +37,9 @@ import numpy as np
 import torch
 
 from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS
+from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.models.registry import build_generator
-
-# cuDNN and cuBLAS read the TF32 switches, which are process-wide, when an
-# op is enqueued.  One lock keeps a forward on one thread from seeing
-# another thread's restore.
-_F32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Run the body with TF32 off for cuDNN convolutions
-    (``torch.backends.cudnn.allow_tf32``) and CUDA matmuls
-    (``torch.backends.cuda.matmul.allow_tf32``), restoring both after: the
-    f32 semantics that the JAX package's CPU goldens pin."""
-    with _F32_LOCK:
-        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "InferenceEngine: no CUDA device is available.  The engine runs on the "
-            "card; pass device='cpu' explicitly to run the plain PyTorch versions."
-        )
-    return dev
-
 
 class InferenceEngine:
     """The serving forward of one attention generator at a fixed shape.
@@ -100,7 +68,7 @@ class InferenceEngine:
         wire_dtype: str = "float32",
         device=None,
     ):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "InferenceEngine")
         self.model = model
         self.topography = topography
         self.batch_size = batch_size

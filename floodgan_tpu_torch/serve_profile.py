@@ -43,9 +43,9 @@ CATEGORIES = (
 )
 
 
-def category(name: str) -> str:
+def category(name: str, categories=CATEGORIES) -> str:
     low = name.lower()
-    for label, keys in CATEGORIES:
+    for label, keys in categories:
         if any(k in low for k in keys):
             return label
     return "other"

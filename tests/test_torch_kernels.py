@@ -172,3 +172,20 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="fake compile failure"):
         _build.build()
     assert not any(os.scandir(tmp_path / "build"))
+
+
+def test_build_compiles_each_source_in_its_own_call_then_links(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    calls = tmp_path / "calls.txt"
+    monkeypatch.setenv("CUDA_HOME", _fake_nvcc(
+        tmp_path,
+        f"open({str(calls)!r}, 'a').write(' '.join(args) + '\\n')\n"
+        "open(args[args.index('-o') + 1], 'w').close()",
+    ))
+    _build.build()
+    lines = [line.split() for line in calls.read_text().splitlines()]
+    compiles = [a for a in lines if "-c" in a]
+    links = [a for a in lines if "-shared" in a]
+    assert sorted(a[-1] for a in compiles) == sorted(str(p) for p in _build.sources())
+    assert len(links) == 1 and len(lines) == len(compiles) + 1
+    assert sorted(a for a in links[0] if a.endswith(".o")) == sorted(a[a.index("-o") + 1] for a in compiles)
