@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths for PairedAttention (topography "all", 9
-input channels) at full width, 512^2: serving, and paired training.  It
-fails unless every phase passes:
+Drives the port's three main paths at full width: serving and paired
+training of PairedAttention (topography "all", 9 input channels) at 512^2,
+and the content-head microbench (a ConvT 128->64 to 512^2, reflect pad,
+the 7x7 64->27 head conv) at batch 8 in bf16.  It fails unless every phase
+passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
 2. build    - compiles csrc/*.cu with nvcc for sm_90a (ops/_build.py).
@@ -14,9 +16,11 @@ fails unless every phase passes:
               norm and K3 compose, f32 and bf16; K2 instance-norm backward
               at the 4 generator and 3 PatchGAN sites, f32 and bf16; K4
               compose backward, f32 and bf16, with and without the mask
-              gradient), with its median time (CUDA events), its bound, the
-              plain version's time and, where one PyTorch call computes the
-              same function, that call's time; then odd edge shapes.
+              gradient; K5 row copy at the head's padded input, bf16 and
+              f32, bit for bit), with its median time (CUDA events), its
+              bound, the plain version's time and, where one PyTorch call
+              computes the same function, that call's time; then odd edge
+              shapes and misaligned pointers.
 4. engine   - InferenceEngine at batch 8 and batch 1 from a seeded init: one
               predict launches the IN kernel 25 times and compose once, and
               no backward kernel; the output is finite, in [0, 1]; latency
@@ -31,7 +35,13 @@ fails unless every phase passes:
               training path.  Five steps give finite losses and change both
               parameter sets; then the median step time over 10 steps,
               samples/s and peak memory.
-8. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
+8. head     - python -m floodgan_tpu_torch.tools.microbench_head, through its
+              main(), with the launch counts set to 0 before and read after:
+              check (every variant within TOL_HEAD_ULPS of raw, and K5 then
+              raw equal to raw bit for bit), the fwd+bwd race of every
+              variant that has a backward, and the forward race of all 11;
+              K5 launches once per raw_pallasfence forward.
+9. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
               off) on the card and on the CPU (plain versions): step-1 and
               step-2 losses.
 
@@ -58,6 +68,7 @@ BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 TIMED_RUNS = 20
+PRE_WAIT_CYCLES = 1_000_000  # about 0.5 ms of device wait ahead of each timed call
 
 # Instance-norm sites of one batch-8 512^2 generator forward (NCHW):
 # (label, shape, relu, residual, sites per forward).  25 sites in all.
@@ -77,8 +88,15 @@ D_SITES = (
 )
 D_READS = 3
 LR = 2e-4
-TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1}
-SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0}
+TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1, "copy": 0}
+SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0, "copy": 0}
+COPY_SHAPE = (BATCH, S + 6, S + 6, 64)  # the head's input: the reflect-padded ConvT output, NHWC
+HEAD_ITERS = 20
+# [head] check: the variants sum the 49*64 taps in other orders (rowsum adds
+# seven bf16 partial outputs), so each may differ from raw by a few bf16
+# roundings; the limit is 4 bf16 ulps (2^-7 each) of max|raw|.  none
+# computes no conv: its difference is printed, not held.
+TOL_HEAD_ULPS = 4
 TOL_F32_IN = 1e-4      # f32, another summation order of the plane statistics
 TOL_F32 = 1e-5         # f32 elementwise (compose)
 TOL_BF16 = 2e-2        # bf16 output, plus one bf16 ulp (2^-7 relative) for a
@@ -108,19 +126,34 @@ def say(phase: str, msg: str) -> None:
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median over ``runs`` calls of fn, each bracketed by CUDA events."""
+    """Median over ``runs`` calls of fn, each bracketed by CUDA events.  A
+    device-side wait goes ahead of each bracket, so the host enqueues the
+    call while the card is still busy, and the bracket holds device time,
+    not a Python wrapper's launch work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PRE_WAIT_CYCLES)
         start.record()
         fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _in_turns(fns: dict, rounds: int = 4) -> dict:
+    """{name: median of ``median_ms`` over ``rounds`` rounds}, the functions
+    timed in turns, in order and then in reverse."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in names if r % 2 == 0 else names[::-1]:
+            times[k].append(median_ms(fns[k]))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -326,11 +359,73 @@ def _compose_case(gen, dtype, backward, with_gmask=False, rgb_grad=False):
     return ms, plain_ms, b_ms, b_by, err
 
 
+def _same_bits(got, x) -> bool:
+    """got is a contiguous copy of x, bit for bit, in a storage of its own."""
+    return (got.shape == x.shape and got.dtype == x.dtype and got.is_contiguous()
+            and got.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+            and torch.equal(got.reshape(-1).view(torch.uint8), x.reshape(-1).view(torch.uint8)))
+
+
+def _row_copy_case(gen, dtype):
+    """K5 at the [head] phase's shape, bit for bit against its plain version.
+    Returns (ms, plain_ms, bound_ms, bound_by, err, library_ms)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    x = _randn(COPY_SHAPE, dtype, gen)
+    got, want = kernels.row_copy_fwd(x), kernels.row_copy_plain(x)
+    torch.cuda.synchronize()
+    label = f"row_copy {tuple(COPY_SHAPE)} {str(dtype)[6:]}"
+    check(_same_bits(got, x) and _same_bits(want, x), f"{label}: not a bitwise copy in new storage")
+    err = float((got.float() - want.float()).abs().max())
+    # The three are within a percent of each other: time them in turns.
+    t = _in_turns({"kernel": lambda: kernels.row_copy_fwd(x), "plain": lambda: kernels.row_copy_plain(x),
+                   "library": lambda: x.clone()})  # the plain version is this library call
+    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
+    b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 0)
+    say("kernels", f"{label}: bitwise, max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                   f"bound_ms {b_ms:.4f} ({b_by}) library_ms (x.clone(), the plain version) {lib_ms:.4f}")
+    del x, got, want
+    return ms, plain_ms, b_ms, b_by, err, lib_ms
+
+
+def phase_copy_edges(gen) -> None:
+    """K5 off the main path: a 70-byte row, odd sizes, sources 2 or 4 bytes
+    into their storage (narrower vectors); then, through the C entry, source
+    and destination 0-15 bytes into theirs (the scalar head, the vectors, the
+    tail), with the bytes around each copy untouched."""
+    from floodgan_tpu_torch.ops import _build, kernels
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((1, 3, 5, 7), (2, 1, 1, 1), (3, 17, 19, 5)):
+            x = _randn(shape, dtype, gen)
+            inside = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view(shape)
+            inside.copy_(x)
+            for src in (x, inside):
+                got = kernels.row_copy_fwd(src)
+                check(_same_bits(got, src), f"row_copy {shape} {dtype} at byte "
+                                            f"{src.data_ptr() % 16} of 16: not a bitwise copy")
+    lib = _build.library()
+    src = torch.randint(0, 255, (4096,), generator=gen, device="cuda", dtype=torch.uint8)
+    cases = ((3, 3, 4000), (15, 15, 17), (1, 9, 1000), (8, 0, 3001), (4, 12, 2), (0, 0, 4096))
+    for s_off, d_off, n in cases:
+        dst = torch.full((4096 + 16,), 255, device="cuda", dtype=torch.uint8)  # src holds no 255
+        err = lib.floodgan_row_copy(src[s_off:].data_ptr(), dst[d_off:].data_ptr(), n,
+                                    torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        check(err == 0, f"floodgan_row_copy at offsets {s_off}, {d_off}: cudaError {err}")
+        check(torch.equal(dst[d_off:d_off + n], src[s_off:s_off + n])
+              and bool((dst[:d_off] == 255).all()) and bool((dst[d_off + n:] == 255).all()),
+              f"floodgan_row_copy of {n} bytes at offsets {s_off}, {d_off}: wrong bytes")
+    say("kernels", "row_copy edge shapes (70-byte rows, odd sizes, sources 2 or 4 bytes into their "
+                   f"storage, bf16 and f32) bit for bit; {len(cases)} byte copies at offsets 0-15 exact, "
+                   "no byte outside written")
+
+
 def phase_kernels() -> dict:
     """Every kernel at the main paths' shapes.  Returns the JSON rows by
     kernel name: in_act and attention_compose over one f32 serving
     forward (as in the first slice), in_bwd and attention_compose_bwd over
-    one bf16 train step."""
+    one bf16 train step, row_copy at the head's bf16 input."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     serve_in, train_in, train_bwd = _Total(), _Total(), _Total()
@@ -366,6 +461,8 @@ def phase_kernels() -> dict:
         _compose_case(gen, dtype, True, with_gmask=True, rgb_grad=True)
     _compose_case(gen, f32, True)
     compose_bwd = _compose_case(gen, bf16, True)  # the train step's case
+    copy_ms, copy_plain, copy_bound, copy_by, copy_err, copy_lib = _row_copy_case(gen, bf16)  # the head's
+    copy_err = max(copy_err, _row_copy_case(gen, f32)[4])
 
     say("kernels", f"in_act, the 25 f32 sites of one batch-{BATCH} {S}^2 forward: ms {serve_in.ms:.4f} "
                    f"plain_ms {serve_in.plain_ms:.4f} bound_ms {serve_in.bound_ms:.4f}")
@@ -374,6 +471,7 @@ def phase_kernels() -> dict:
     say("kernels", f"in_bwd, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_bwd.ms:.4f} "
                    f"plain_ms {train_bwd.plain_ms:.4f} bound_ms {train_bwd.bound_ms:.4f}")
     phase_kernel_edges(gen)
+    phase_copy_edges(gen)
 
     def single(name, source, replaces, r):
         ms, plain_ms, b_ms, b_by, err = r
@@ -389,6 +487,10 @@ def phase_kernels() -> dict:
         "compose": single("attention_compose", co_src, "floodgan_tpu/ops/pallas_kernels.py:272", compose),
         "compose_bwd": single("attention_compose_bwd", co_src,
                               "floodgan_tpu/ops/pallas_kernels.py:317", compose_bwd),
+        "copy": {"name": "row_copy", "route": "cuda", "source": "floodgan_tpu_torch/csrc/row_copy.cu",
+                 "replaces": "tools/microbench_head.py:144", "launches": None, "max_abs_err": copy_err,
+                 "ms": copy_ms, "plain_ms": copy_plain, "bound_ms": copy_bound, "bound_by": copy_by,
+                 "library_ms": copy_lib},
     }
 
 
@@ -602,6 +704,51 @@ def phase_train(smi) -> dict:
     return counts
 
 
+def phase_head(smi) -> dict:
+    """The content-head microbench through its entry point, at full width."""
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.tools import microbench_head
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    chk = microbench_head.main(["--variant", "check"])
+    both = microbench_head.main(["--variant", "all", "--iters", str(HEAD_ITERS)])
+    fwd = microbench_head.main(["--variant", "all", "--fwd", "--iters", str(HEAD_ITERS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    # one raw_pallasfence forward in check, and a warm-up plus HEAD_ITERS in the forward race
+    want = {k: 0 for k in counts} | {"copy": 2 + HEAD_ITERS}
+    check(counts == want, f"the head microbench launched {counts}, expected {want}")
+
+    top, diffs = chk["max_abs_raw"], chk["max_abs_diff"]
+    tol = TOL_HEAD_ULPS * 2.0 ** -7 * top
+    check(np.isfinite(top) and top > 0, f"head check: max|raw| is {top}")
+    say("head", f"check at batch {microbench_head.B}, {2 * microbench_head.SIZE}^2 bf16: max|raw| {top}, "
+                f"tol {TOL_HEAD_ULPS} bf16 ulps of it = {tol:.4g}; max|variant - raw|: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in diffs.items()) + " (none: no conv, not held)")
+    check(set(diffs) == set(microbench_head.HEADS), f"head check ran {sorted(diffs)}")
+    bad = {k: v for k, v in diffs.items() if k != "none" and not v <= tol}
+    check(not bad, f"head variants off raw by more than {tol}: {bad}")
+    check(diffs["raw_pallasfence"] == 0.0,
+          f"K5 then raw differs from raw by {diffs['raw_pallasfence']}; expected bit for bit")
+
+    backward = set(microbench_head.HEADS) - set(microbench_head.FORWARD_ONLY)
+    check(set(both["ms"]) == backward and set(fwd["ms"]) == set(microbench_head.HEADS),
+          f"race ran fwd+bwd {sorted(both['ms'])}, fwd {sorted(fwd['ms'])}")
+    times = list(both["ms"].values()) + list(fwd["ms"].values())
+    check(all(np.isfinite(t) and t > 0 for t in times), f"head race times {both['ms']} {fwd['ms']}")
+    for name in sorted(microbench_head.HEADS):
+        fb = both["ms"].get(name)
+        say("head", f"{name:15s} fwd {fwd['ms'][name]:8.3f} ms ({fwd['tflops'][name]:6.1f} TF/s)   fwd+bwd "
+                    + (f"{fb:8.3f} ms ({both['tflops'][name]:6.1f} TF/s)" if fb is not None else "forward only"))
+    say("head", f"raw (channels_last) against raw_nchw (NCHW and back): fwd {fwd['ms']['raw']:.3f} against "
+                f"{fwd['ms']['raw_nchw']:.3f} ms, fwd+bwd {both['ms']['raw']:.3f} against "
+                f"{both['ms']['raw_nchw']:.3f} ms; launches {counts}; {wall:.1f} s ({smi})")
+    return counts
+
+
 def phase_train_card_vs_cpu() -> None:
     from floodgan_tpu_torch.train.paired import PairedTrainer
 
@@ -633,10 +780,12 @@ def main() -> int:
     del engine
     phase_card_vs_cpu(sd)
     train_counts = phase_train(smi)
+    head_counts = phase_head(smi)
     for k, row in rows.items():
-        row["launches"] = serve_counts[k] + train_counts[k]
+        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k]
     check(all(row["launches"] > 0 for row in rows.values()),
-          f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}")
+          f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}, "
+          f"head {head_counts}")
     phase_train_card_vs_cpu()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -51,6 +51,8 @@ SIGNATURES = {
     # drgb (or NULL), batch, hw, rgb batch stride, stream
     "floodgan_attention_compose_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "floodgan_attention_compose_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # src, dst, bytes, stream
+    "floodgan_row_copy": (_P, _P, _I64, _P),
 }
 
 _lock = threading.Lock()

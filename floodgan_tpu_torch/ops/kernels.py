@@ -6,12 +6,15 @@ their autograd Functions and their launch counters.
   ``instance_norm_act_bwd`` (K2, same file) replaces ``_in_bwd_kernel``;
 - ``attention_compose_fwd`` (csrc/attention_compose.cu, K3) replaces
   ``_compose_kernel``, and ``attention_compose_bwd`` (K4, same file)
-  replaces ``_compose_bwd_kernel``.
+  replaces ``_compose_bwd_kernel``;
+- ``row_copy_fwd`` (csrc/row_copy.cu, K5) replaces ``copy_kernel``, the
+  Pallas layout fence of tools/microbench_head.py.
 
 ``InstanceNormAct`` and ``AttentionCompose`` pair each forward with its
 backward, as the JAX package's custom VJPs do; ``instance_norm_act`` and
 ``attention_compose`` are the entry points the models call.  With grad
-disabled they launch the forward kernels only.
+disabled they launch the forward kernels only.  ``RowCopy`` (entry point
+``row_copy``) has a forward only, as the Pallas fence has.
 
 A wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises: a failed build, a refused
@@ -30,7 +33,7 @@ import torch
 
 from floodgan_tpu_torch.ops import _build
 
-LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0}
+LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0}
 
 EPS = 1e-5
 
@@ -452,3 +455,56 @@ def attention_compose(
     backward on the card, the plain versions on the CPU.  Returns (output
     (N,3,H,W), background mask (N,H,W))."""
     return AttentionCompose.apply(content, attn_logits, rgb)
+
+
+# ================================================================= row copy
+
+
+def row_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous tensor equal to x: K5's function."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def row_copy_fwd(x: torch.Tensor) -> torch.Tensor:
+    """K5: a fresh tensor equal to x bit for bit: the CUDA kernel for a
+    contiguous CUDA tensor (any dtype; the kernel copies bytes), the plain
+    version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return row_copy_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_copy: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"row_copy: x must be contiguous, strides {x.stride()}")
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if y.numel() == 0:
+        return y
+    fn = _build.library().floodgan_row_copy
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), x.numel() * x.element_size(), _stream(x))
+    _check_launch(err, "row_copy")
+    LAUNCHES["copy"] += 1
+    return y
+
+
+class RowCopy(torch.autograd.Function):
+    """K5 forward, and no backward.  Without the Function a copy made by
+    the kernel would carry no ``grad_fn``, and a gradient through it would
+    stop without a word on the card while ``clone`` passed it on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return row_copy_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "row_copy has no backward: the Pallas layout fence it replaces "
+            "(tools/microbench_head.py:head_raw_pallasfence) has no reverse rule either; "
+            "time raw_pallasfence forward only"
+        )
+
+
+def row_copy(x: torch.Tensor) -> torch.Tensor:
+    """The layout fence of the content-head microbench: K5 on the card, the
+    plain version on the CPU.  Differentiating through it raises."""
+    return RowCopy.apply(x)

@@ -210,7 +210,7 @@ def test_backward_on_cpu_tensors_launches_nothing(rng):
     out, _ = kernels.attention_compose(c, torch.zeros(1, 10, 4, 4), torch.zeros(1, 3, 4, 4))
     out.sum().backward()
     assert kernels.LAUNCHES == before
-    assert set(kernels.LAUNCHES) == {"in_act", "in_bwd", "compose", "compose_bwd"}
+    assert set(kernels.LAUNCHES) == {"in_act", "in_bwd", "compose", "compose_bwd", "copy"}
 
 
 def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
