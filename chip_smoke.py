@@ -41,7 +41,25 @@ passes:
               raw equal to raw bit for bit), the fwd+bwd race of every
               variant that has a backward, and the forward race of all 11;
               K5 launches once per raw_pallasfence forward.
-9. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
+9. cli      - the paired-training CLI end to end on 1024^2 tiles written
+              into a temporary directory (12 train images, each original and
+              flipped, 2 validation, 2 test; 9-channel inputs, 3-channel
+              outputs, uniform from the seed): python -m
+              floodgan_tpu_torch.cli.train through its main(), resized to
+              512^2, batch 8, bf16, 3 epochs, a .ckpt each epoch; each of its
+              9 steps launches K1 34, K2 34, K3 1, K4 1 times.  Then a resume
+              from the epoch-1 file, bit for bit against a snapshot the first
+              run took after epoch 1 (parameters, Adam moments and steps,
+              starting epoch, loss history), trained on to epoch 3; python -m
+              floodgan_tpu_torch.cli.predict on the 2 test inputs from the
+              epoch-3 file (two PNGs); InferenceEngine.from_checkpoint against
+              the in-memory model's generate (within TOL_CKPT_PREDICT); one
+              request through ModelRepository.add_checkpoint.  Prints the
+              decoder that served and its rate, each epoch's wall time, the
+              loaded samples/s beside [train]'s step-only rate, the share of
+              each epoch spent blocked in the loader, checkpoint save and load
+              times and size, and predict latency.
+10. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
               off) on the card and on the CPU (plain versions): step-1 and
               step-2 losses.
 
@@ -110,6 +128,13 @@ TOL_TRAIN_STEP1 = 1e-4  # card against CPU, step-1 losses
 # the card and the CPU.  The JAX package's own two routes differ by 4.3e-4
 # there; the CPU tests hold the port to JAX at the same 2e-3.
 TOL_TRAIN_STEP2 = 2e-3
+# [cli]: the xBD tile size, the split sizes, the epochs; the .ckpt holds the
+# f32 weights bit for bit, so the engine of the file and the in-memory model
+# run the same function on the same weights.
+CLI_TILE = 1024
+CLI_SPLITS = (("train", 12), ("validation", 2), ("test", 2))
+CLI_EPOCHS = 3
+TOL_CKPT_PREDICT = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -701,7 +726,7 @@ def phase_train(smi) -> dict:
                  f"peak memory {peak / 2**30:.3f} GiB ({smi})")
     del trainer, x, y
     torch.cuda.empty_cache()
-    return counts
+    return counts, BATCH / (step_ms / 1e3)
 
 
 def phase_head(smi) -> dict:
@@ -749,6 +774,244 @@ def phase_head(smi) -> dict:
     return counts
 
 
+def _write_cli_fixture(root: str, rng) -> list:
+    """The [cli] dataset on disk, in the reference layout: dataset_input/,
+    dataset_output/ and metadata/dataset_split.csv (best_DEM == same_DEM,
+    so one input file per image).  Returns the test input paths."""
+    import csv
+    import os
+
+    from floodgan_tpu_torch.data import tiff
+
+    for d in ("dataset_input", "dataset_output", "metadata"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rows, tests = [], []
+    for split, n in CLI_SPLITS:
+        for i in range(n):
+            image = f"hurricane-harvey_{split[:3]}{i:05d}"
+            for version in ("original", "flipped") if split == "train" else ("original",):
+                rows.append({"image": image, "best_DEM": "01m", "same_DEM": "01m", "version": version,
+                             "split": split, "disaster": "hurricane-harvey", "country": "usa"})
+            path = os.path.join(root, "dataset_input", f"{image}_01m.tif")
+            tiff.imwrite(path, rng.random((CLI_TILE, CLI_TILE, 9), dtype=np.float32))
+            tiff.imwrite(os.path.join(root, "dataset_output", f"{image}.tif"),
+                         rng.random((CLI_TILE, CLI_TILE, 3), dtype=np.float32))
+            if split == "test":
+                tests.append(path)
+    with open(os.path.join(root, "metadata", "dataset_split.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return tests
+
+
+def _train_snapshot(model) -> dict:
+    """Host copies of everything a resume must restore."""
+    t = model.trainer
+    snap = {"all_losses": json.loads(json.dumps(model.all_losses)), "epoch": model.current_epoch}
+    for net, opt in (("generator", t.gen_opt), ("discriminator", t.disc_opt)):
+        module = getattr(t, net)
+        for name, p in module.named_parameters():
+            st = opt.state[p]
+            snap[f"{net}.{name}"] = p.detach().cpu().clone()
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                snap[f"{net}.{name}:{k}"] = st[k].detach().cpu().clone()
+    return snap
+
+
+def _epoch_line(st: dict) -> str:
+    sec, wait = st["seconds"], st["loader_wait_seconds"]
+    stages = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st["stage_seconds"].items())
+    return (f"epoch {st['epoch']}: {sec:.3f} s, {st['samples']} samples, {st['samples'] / sec:.2f} samples/s, "
+            f"blocked in the loader {wait:.3f} s ({wait / sec:.3f} of the epoch), post-cache hits "
+            f"{st['post_cache_hits']}/{st['batches']}; loader worker ms: {stages}")
+
+
+def phase_cli(smi, step_rate: float) -> dict:
+    """The paired-training CLI end to end on 1024^2 tiles (module docstring,
+    phase 9).  Returns the launch counts of its runs."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from floodgan_tpu_torch.api import model as api_model
+    from floodgan_tpu_torch.ckpt import load_checkpoint
+    from floodgan_tpu_torch.cli import predict as cli_predict
+    from floodgan_tpu_torch.cli import train as cli_train
+    from floodgan_tpu_torch.data import native, tiff
+    from floodgan_tpu_torch.data.transforms import denormalize
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.serve import InferenceEngine, ModelRepository
+
+    total = {k: 0 for k in kernels.LAUNCHES}
+
+    def zero():
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+
+    def read(what, want):
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        check(got == want, f"{what} launched {got}, expected {want}")
+        for k in total:
+            total[k] += got[k]
+        return got
+
+    snaps, timings, models = {}, [], []
+
+    class Recorder(api_model.Model):
+        """The CLI's Model, with a snapshot after epoch 1 and the save time."""
+
+        def save_checkpoint(self, epoch):
+            t0 = time.perf_counter()
+            path = super().save_checkpoint(epoch)
+            timings.append((time.perf_counter() - t0, os.path.getsize(path)))
+            return path
+
+        def save_results(self, epoch, losses, epoch_start_time):
+            super().save_results(epoch, losses, epoch_start_time)
+            if epoch == 1 and not snaps:
+                snaps["epoch1"] = _train_snapshot(self)
+            if not models or models[-1] is not self:
+                models.append(self)
+
+    root = tempfile.mkdtemp(prefix="floodgan_cli_")
+    try:
+        t0 = time.perf_counter()
+        tests = _write_cli_fixture(root, np.random.default_rng(SEED + 5))
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        say("cli", f"fixture: {sum(n for _, n in CLI_SPLITS)} images of {CLI_TILE}^2 (9 + 3 channels, f32), "
+                   f"{on_disk / 2**30:.2f} GiB, written in {time.perf_counter() - t0:.2f} s")
+        flags = ["--model=PairedAttention", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
+                 f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
+                 f"--batch_size={BATCH}", "--compute_dtype=bfloat16", f"--num_epochs={CLI_EPOCHS}",
+                 "--save_model_interval=1", "--verbose"]
+        n_train = 2 * dict(CLI_SPLITS)["train"]
+        steps = CLI_EPOCHS * -(-n_train // BATCH)
+        decoded = dict(native.BATCHES)
+        saved_model = api_model.Model
+        api_model.Model = Recorder
+        try:
+            zero()
+            t0 = time.perf_counter()
+            first = cli_train.main(flags)
+            wall = time.perf_counter() - t0
+            read(f"the CLI's {steps} steps", {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()})
+        finally:
+            api_model.Model = saved_model
+        served = {k: native.BATCHES[k] - decoded[k] for k in decoded}
+        losses = {k: v[-1] for k, v in first.all_losses.items()}
+        check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in first.all_losses.values()),
+              f"CLI losses {first.all_losses}")
+        ckpts = sorted(os.listdir(os.path.join(root, "models")))
+        pattern = (r"PairedAttention_epoch(\d)_allTopography_usaData_bestDEM_resize%d_cropNone_"
+                   r"date\d{4}(-\d\d){5}\.ckpt" % S)
+        check(len(ckpts) == CLI_EPOCHS and all(re.fullmatch(pattern, c) for c in ckpts)
+              and sorted(int(re.fullmatch(pattern, c).group(1)) for c in ckpts) == [1, 2, 3],
+              f"checkpoints {ckpts}")
+        first_dir = os.path.join(root, "first_run")
+        shutil.move(os.path.join(root, "models"), first_dir)
+        by_epoch = {int(re.fullmatch(pattern, c).group(1)): os.path.join(first_dir, c) for c in ckpts}
+
+        stats = first.epoch_stats
+        decode_s = stats[0]["stage_seconds"]["decode"]
+        decode_mb = n_train * CLI_TILE * CLI_TILE * 12 * 4 / 1e6
+        say("cli", f"python -m floodgan_tpu_torch.cli.train {' '.join(flags[:3] + flags[6:])}: {wall:.2f} s; "
+                   f"{steps} steps launched {total}; final losses {json.dumps(losses)}")
+        say("cli", f"decoder: native {served['native']} batches, python {served['python']} batches; epoch 1 "
+                   f"decoded {decode_mb:.0f} MB in {decode_s:.3f} worker-seconds ({decode_mb / decode_s:.0f} MB/s)")
+        for st in stats:
+            say("cli", _epoch_line(st))
+        cached = stats[1:]
+        rate = sum(s["samples"] for s in cached) / sum(s["seconds"] for s in cached)
+        say("cli", f"epochs 2-{CLI_EPOCHS} (post-transform cache): {rate:.2f} samples/s against [train]'s "
+                   f"step-only {step_rate:.2f} ({rate / step_rate:.3f}); blocked in the loader "
+                   f"{sum(s['loader_wait_seconds'] for s in cached) / sum(s['seconds'] for s in cached):.3f} "
+                   f"of those epochs ({smi})")
+        save_s = [t for t, _ in timings]
+        say("cli", f"checkpoint save ms {', '.join(f'{t * 1e3:.1f}' for t in save_s)} "
+                   f"({timings[0][1]} bytes, {timings[0][1] / 2**20:.1f} MiB each)")
+        check(all(np.isfinite([s["seconds"] for s in stats])), "epoch times")
+
+        # ---- resume from the epoch-1 file, bit for bit ----
+        t0 = time.perf_counter()
+        load_checkpoint(by_epoch[1])
+        load_ms = (time.perf_counter() - t0) * 1e3
+        snap = snaps["epoch1"]
+        t0 = time.perf_counter()
+        resumed = Recorder(load_pretrained_model=True, pretrained_model_path=by_epoch[1], dataset_subset="usa",
+                           dataset_dem="best", data_path=root, metadata_dir=f"{root}/metadata", resize=S,
+                           batch_size=BATCH, compute_dtype="bfloat16", save_model_interval=1)
+        resume_s = time.perf_counter() - t0
+        check(resumed.starting_epoch == 2, f"resumed at epoch {resumed.starting_epoch}")
+        check(resumed.all_losses == snap["all_losses"], f"loss history {resumed.all_losses} != {snap['all_losses']}")
+        now = _train_snapshot(resumed)
+        differ = [k for k in snap if k not in ("all_losses", "epoch") and not (
+            now[k].dtype == snap[k].dtype and now[k].shape == snap[k].shape and torch.equal(now[k], snap[k]))]
+        check(not differ and set(now) == set(snap), f"resume differs from the epoch-1 snapshot in {differ[:5]}")
+        zero()
+        resumed.train_paired()
+        resume_steps = (CLI_EPOCHS - 1) * -(-n_train // BATCH)
+        read(f"the resumed {resume_steps} steps", {k: v * resume_steps for k, v in TRAIN_STEP_LAUNCHES.items()})
+        check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in resumed.all_losses.values()),
+              f"resumed losses {resumed.all_losses}")
+        say("cli", f"resume from the epoch-1 .ckpt: load_checkpoint {load_ms:.1f} ms, Model set-up {resume_s:.2f} s; "
+                   f"starting epoch 2, loss history and {len(snap) - 2} tensors (parameters, exp_avg, exp_avg_sq, "
+                   f"step) bit for bit; epochs 2-{CLI_EPOCHS} losses "
+                   f"{json.dumps({k: v[1:] for k, v in resumed.all_losses.items()})}")
+        del resumed
+
+        # ---- predict from the epoch-3 file ----
+        out_dir = os.path.join(root, "predictions")
+        zero()
+        t0 = time.perf_counter()
+        pngs = cli_predict.main(["--pretrained_model_path", by_epoch[3], "--inputs", *tests,
+                                 "--output_dir", out_dir, "--resize", str(S)])
+        cli_s = time.perf_counter() - t0
+        read("the predict CLI (its warm-up forward and one batch)", {k: v * 2 for k, v in SERVE_LAUNCHES.items()})
+        check(len(pngs) == len(tests) and all(os.path.getsize(p) > 0 for p in pngs), f"PNGs {pngs}")
+
+        engine = InferenceEngine.from_checkpoint(by_epoch[3], batch_size=len(tests), image_size=S)
+        stacks = np.stack([np.asarray(tiff.imread(f), np.float32) for f in tests])
+        x = engine.preprocess(stacks, resize=S)
+        zero()
+        got = engine.predict(x)
+        read("one engine forward", SERVE_LAUNCHES)
+        model3 = models[0]
+        want = denormalize(model3.generate(x)[0])
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        check(tuple(got.shape) == (len(tests), S, S, 3) and bool(torch.isfinite(got).all()),
+              f"engine output {tuple(got.shape)}")
+        check(diff <= TOL_CKPT_PREDICT, f"engine of the epoch-3 .ckpt against the trained model: {diff}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engine.predict(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        repo = ModelRepository()
+        try:
+            repo.add_checkpoint("paired", by_epoch[3], batch_size=1, image_size=S)
+            answer = repo.predict("paired", x[0].cpu().numpy())
+        finally:
+            repo.close()
+        check(answer.shape == (S, S, 3) and np.abs(answer - got[0].cpu().numpy()).max() <= 1e-3,
+              "repository answer")
+        say("cli", f"python -m floodgan_tpu_torch.cli.predict on {len(tests)} {CLI_TILE}^2 inputs: {len(pngs)} PNGs "
+                   f"in {cli_s:.2f} s; InferenceEngine.from_checkpoint(epoch 3) against the trained model's "
+                   f"generate: max_abs_diff {diff:.3g} (tol {TOL_CKPT_PREDICT:g}); predict latency "
+                   f"{statistics.median(times) * 1e3:.3f} ms per batch of {len(tests)} at {S}^2 (median of 5); "
+                   f"ModelRepository.add_checkpoint answered one request ({smi})")
+        del engine, first, model3
+        models.clear()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_train_card_vs_cpu() -> None:
     from floodgan_tpu_torch.train.paired import PairedTrainer
 
@@ -779,13 +1042,14 @@ def main() -> int:
     serve_counts = phase_requests(engine)
     del engine
     phase_card_vs_cpu(sd)
-    train_counts = phase_train(smi)
+    train_counts, step_rate = phase_train(smi)
     head_counts = phase_head(smi)
+    cli_counts = phase_cli(smi, step_rate)
     for k, row in rows.items():
-        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k]
+        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k] + cli_counts[k]
     check(all(row["launches"] > 0 for row in rows.values()),
           f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}, "
-          f"head {head_counts}")
+          f"head {head_counts}, cli {cli_counts}")
     phase_train_card_vs_cpu()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

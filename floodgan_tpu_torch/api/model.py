@@ -1,0 +1,449 @@
+"""The GAN train object of the port: ``Model``, for the paired family.
+
+The port of floodgan_tpu/api/model.py:107-518 for PairedAttention, on the
+card (``device=None``) or wherever the caller asks.  What it keeps:
+- self-describing checkpoints: resuming reads model, num_epochs,
+  topography and the identity-loss flag from the file, and the state is
+  the JAX ``PairedState`` tree, so either package resumes the other's
+  ``.ckpt`` (and reference ``.pth.tar`` files migrate on load);
+- the per-epoch data order of the loader, the LambdaLR schedule applied
+  per epoch, the loss schema and per-epoch means in ``all_losses``, the
+  verbose print format, and the metadata-encoded artifact names;
+- a SIGTERM during training becomes a ``KeyboardInterrupt`` that writes a
+  resume checkpoint first.
+
+Losses stay on the device within an epoch, with one transfer at its end.
+``epoch_stats`` records, per epoch, its wall time, the seconds the loop
+spent blocked in the loader's ``next()``, the samples, and the loader's
+stage seconds and post-transform cache hits.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
+Queue 1 item: multi-device meshes (12), ``remat`` (1),
+``calculate_metrics`` (6), the cycle family (9) and Pix2Pix (8).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import signal
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from floodgan_tpu_torch.api import paths as pathlib_
+from floodgan_tpu_torch.ckpt import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from floodgan_tpu_torch.ckpt.migrate import maybe_migrate
+from floodgan_tpu_torch.core.config import (
+    TOPOGRAPHY_CHANNELS,
+    TrainConfig,
+    _check_model,
+    lambda_rule,
+    model_is_attention,
+    model_is_cycle,
+    prettify_model_name,
+)
+from floodgan_tpu_torch.core.device import resolve_device
+from floodgan_tpu_torch.data.pipeline import create_flood_dataset
+from floodgan_tpu_torch.train.paired import PairedTrainer
+from floodgan_tpu_torch.utils.jax_params import load_paired_state, paired_state_to_jax
+
+LOSS_KEYS = (
+    "losses_discriminator_real",
+    "losses_discriminator_synthetic",
+    "losses_generator_synthetic",
+    "l1_losses_generator_synthetic",
+)
+
+
+def _safe_print(msg: str) -> None:
+    """print that survives a closed or orphaned stdout: losing a log line
+    must never cost a checkpoint."""
+    try:
+        print(msg)
+    except (BrokenPipeError, ValueError, OSError):
+        pass
+
+
+def to_display_image(x) -> np.ndarray:
+    """NHWC/HWC tensor or array in [-1, 1] -> HWC numpy RGB in [0, 1]."""
+    arr = x.detach().float().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if arr.ndim == 4:
+        arr = arr[0]
+    if arr.ndim == 3:
+        arr = np.clip((arr[:, :, :3] + 1.0) * 0.5, 0.0, 1.0)
+    return arr
+
+
+def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to floodgan_tpu_torch yet: it waits for ROADMAP.md Queue 1 item {item} ({name})"
+    )
+
+
+class Model:
+    def __init__(
+        self,
+        model: str = "pix2pix",
+        dataset_subset: str = "all",
+        dataset_dem: str = "best",
+        data_path: Optional[str] = None,
+        num_epochs: int = 1,
+        topography: Optional[str] = "all",
+        resize: Optional[int] = 256,
+        crop: Optional[int] = None,
+        save_model_interval: int = 0,
+        save_images_interval: int = 0,
+        verbose: bool = False,
+        load_pretrained_model: bool = False,
+        pretrained_model_path: Optional[str] = None,
+        add_identity_loss: bool = False,
+        training_model: bool = True,
+        seed: int = 47,
+        batch_size: int = 1,
+        num_data_devices: int = 1,
+        num_spatial_devices: int = 1,
+        metadata_dir: Optional[str] = None,
+        compute_dtype: str = "float32",
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
+        async_checkpoint: bool = False,
+        train_cfg: TrainConfig = TrainConfig(),
+        device=None,
+    ):
+        if verbose:
+            print(f"\nSetting up the {prettify_model_name(model)} model...")
+        if num_data_devices > 1 or num_spatial_devices > 1:
+            raise _not_ported("multi-device training", 12, "Multi-GPU")
+        if remat:  # remat_policy only matters with remat
+            raise _not_ported("--remat", 1, "Paired training slice, remat")
+        if save_images_interval and importlib.util.find_spec("matplotlib") is None:
+            raise RuntimeError("save_images_interval > 0 plots sample images, which needs matplotlib")
+        self.device = resolve_device(device, "Model")
+
+        # -- config, possibly from a self-describing checkpoint --
+        saved_meta = saved_state = None
+        if load_pretrained_model:
+            pretrained_model_path = maybe_migrate(pretrained_model_path, "gan")
+            saved_meta, saved_state = load_checkpoint(pretrained_model_path)
+            self.model = saved_meta["model"]
+            self.num_epochs = saved_meta["num_epochs"]
+            self.topography = saved_meta["topography"]
+            self.add_identity_loss = saved_meta["add_identity_loss"]
+        else:
+            self.model = model.lower()
+            self.num_epochs = num_epochs
+            self.topography = topography.lower() if isinstance(topography, str) else topography
+            if self.topography in ("none", ""):
+                self.topography = None
+            self.add_identity_loss = add_identity_loss
+        _check_model(self.model)
+        if model_is_cycle(self.model):
+            raise _not_ported(f"the {self.model} model", 9, "Cycle family")
+        if self.model == "pix2pix":
+            raise _not_ported("the pix2pix model", 8, "Pix2Pix family")
+        self.verbose = verbose
+        self.save_model_interval = save_model_interval
+        self.save_images_interval = save_images_interval
+        self.load_pretrained_model = load_pretrained_model
+        self.data_path = data_path
+        self.dataset_subset = dataset_subset
+        self.dataset_dem = dataset_dem
+        self.resize = resize
+        self.crop = crop
+        self.training_model = training_model
+        self.seed = seed
+        self.batch_size = batch_size
+        self.metadata_dir = metadata_dir
+        self.train_cfg = train_cfg
+        self.model_is_attention = model_is_attention(self.model)
+        self.input_channels = TOPOGRAPHY_CHANNELS[self.topography]
+        self.epoch_stats: List[dict] = []
+
+        # -- data (transforms on the device; reference models/data.py:11-44) --
+        self.train_loader, self.val_loader, self.test_loader = create_flood_dataset(
+            self.dataset_subset, self.dataset_dem, self.data_path, self.topography,
+            self.resize, self.crop, batch_size=self.batch_size,
+            metadata_dir=self.metadata_dir, device=self.device,
+        )
+
+        # -- trainer and state --
+        self.trainer = PairedTrainer(
+            self.model, self.input_channels, cfg=train_cfg, compute_dtype=compute_dtype,
+            device=self.device, seed=seed,
+        )
+        self._image_hw()  # the square-source guard
+        if load_pretrained_model:
+            self.starting_epoch = saved_meta["starting_epoch"]
+            self.all_losses = {k: list(v) for k, v in saved_meta["all_losses"].items()}
+            load_paired_state(self.trainer, saved_state)
+        else:
+            self.starting_epoch = 1
+            self.all_losses = self._initialise_loss_storage(overall=True)
+        self.current_epoch = self.starting_epoch
+        self._async_ckpt = AsyncCheckpointer() if async_checkpoint else None
+
+        if self.verbose and self.training_model:
+            self.print_training_setup()
+
+    # ------------------------------------------------------------- helpers
+
+    def _image_hw(self):
+        """The post-transform image size.  With ``resize`` it assumes
+        square sources: torchvision's ``Resize(int)`` scales the shorter
+        edge, which is h = w = resize only for square images (xBD tiles
+        are 1024^2); a non-square dataset fails here."""
+        ds = next((d for d in (self.train_loader.dataset, self.val_loader.dataset,
+                               self.test_loader.dataset) if len(d)), None)
+        if self.resize:
+            if ds is not None:
+                raw_in, _, _, _ = ds.read_raw(0)
+                if raw_in.shape[0] != raw_in.shape[1]:
+                    raise ValueError(
+                        f"--resize assumes square source images (shorter-edge Resize "
+                        f"semantics); got {raw_in.shape[:2]}"
+                    )
+            h = w = self.resize
+        else:
+            if ds is None:
+                raise ValueError(
+                    "dataset is empty for every split and no --resize was given — "
+                    "cannot infer the image size"
+                )
+            raw_in, _, _, _ = ds.read_raw(0)
+            h, w = raw_in.shape[:2]
+        if self.crop:
+            nd = int(np.sqrt(self.crop))
+            h, w = h // nd, w // nd
+        return h, w
+
+    def _initialise_loss_storage(self, overall: bool) -> Dict[str, List[float]]:
+        """Loss-key schema (reference models/model.py:183-205)."""
+        pre = "all_" if overall else ""
+        return {f"{pre}{k}": [] for k in LOSS_KEYS}
+
+    def prettify_model_name(self, model_name: Optional[str] = None) -> str:
+        return prettify_model_name(model_name or self.model)
+
+    def create_path(self, save_type: str, info: str = "") -> str:
+        return pathlib_.model_artifact_path(
+            self.data_path, save_type, self.prettify_model_name(), info,
+            self.current_epoch if self.training_model else self.current_epoch - 1,
+            self.topography, "", self.dataset_subset, self.dataset_dem, self.resize, self.crop,
+        )
+
+    def print_training_setup(self) -> None:
+        """(reference models/model.py:260-273)"""
+        print(f"\n{'Continuing' if self.load_pretrained_model else 'Beginning'} "
+              f"training {self.prettify_model_name()}:")
+        print(f"{self.num_epochs} epochs")
+        print(f"Starting from epoch {self.starting_epoch}")
+        print(f"{self.topography.title() if self.topography else 'No'} "
+              "topographical factors will be input to the model")
+        print(f"Dataset: {len(self.train_loader)} batches of {self.batch_size} from "
+              f"'{self.dataset_subset}' with '{self.dataset_dem}' DEM")
+        print(f"Data resized to {self.resize} pixels with {self.crop} crops, scaled to [-1, 1]")
+        print(f"Model saved every {self.save_model_interval} epochs")
+        print(f"Sample generator output images saved every {self.save_images_interval} epochs\n")
+
+    def _epoch_lr(self, epoch: int) -> float:
+        """torch LambdaLR counter semantics: factor lambda(epoch - 1) during
+        1-indexed training epoch ``epoch`` (reference model.py:123-124)."""
+        return self.train_cfg.gan_lr * lambda_rule(epoch - 1, self.num_epochs)
+
+    # ------------------------------------------------------------ training
+
+    def _train_loop(self) -> None:
+        # Preemptions arrive as SIGTERM: the same best-effort checkpoint as
+        # a ^C.  Handlers install only from the main thread.
+        def _preempted(signum, frame):
+            raise KeyboardInterrupt
+
+        old_term, installed = None, False
+        try:
+            old_term = signal.signal(signal.SIGTERM, _preempted)
+            installed = True
+        except ValueError:
+            pass
+        try:
+            self._train_epochs()
+            self.wait_for_checkpoints()
+        except KeyboardInterrupt:
+            if self.save_model_interval and self.current_epoch >= self.starting_epoch:
+                _safe_print("\nInterrupted — saving a resume checkpoint...")
+                self.save_checkpoint(self.current_epoch)
+                self.wait_for_checkpoints()
+            raise
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, old_term if old_term is not None else signal.SIG_DFL)
+
+    def _train_epochs(self) -> None:
+        for epoch in range(self.starting_epoch, self.num_epochs + 1):
+            epoch_start_time = time.time()
+            t_start = time.perf_counter()
+            lr = self._epoch_lr(epoch)
+            # Loss scalars stay on the device during the epoch; one
+            # transfer at its end (the reference's per-step .item() syncs
+            # every step, models/model.py:648-651).
+            step_metrics, samples, wait = [], 0, 0.0
+            batches = iter(self.train_loader.epoch_iter(epoch))
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                wait += time.perf_counter() - t0
+                if batch is None:
+                    break
+                step_metrics.append(self.trainer.train_step(batch["input"], batch["output"], lr))
+                samples += batch["input"].shape[0]
+
+            losses = self._initialise_loss_storage(overall=False)
+            if step_metrics:
+                host = torch.stack([torch.stack([m[k] for k in LOSS_KEYS]) for m in step_metrics]).cpu()
+                for j, k in enumerate(LOSS_KEYS):
+                    losses[k] = host[:, j].tolist()
+            loader = self.train_loader
+            self.epoch_stats.append({
+                "epoch": epoch, "seconds": time.perf_counter() - t_start, "loader_wait_seconds": wait,
+                "samples": samples, "post_cache_hits": loader.post_cache_hits,
+                "batches": loader.post_cache_total, "stage_seconds": dict(loader.stage_seconds),
+            })
+            self.save_results(epoch=epoch, losses=losses, epoch_start_time=epoch_start_time)
+
+    def train_paired(self) -> None:
+        self._train_loop()
+
+    # ------------------------------------------------------------- results
+
+    def print_losses(self) -> None:
+        """(reference models/model.py:296-319)"""
+        L = self.all_losses
+        print(
+            "| "
+            f"Discriminator real loss = {L['all_losses_discriminator_real'][-1]:.2f} | "
+            f"Discriminator synthetic loss = {L['all_losses_discriminator_synthetic'][-1]:.2f} | "
+            f"Generator synthetic loss = {L['all_losses_generator_synthetic'][-1]:.2f} | "
+            f"L1 generator loss = {L['all_l1_losses_generator_synthetic'][-1]:.2f}"
+        )
+
+    def save_results(self, epoch: int, losses, epoch_start_time: float) -> None:
+        """(reference models/model.py:321-361)"""
+        self.current_epoch = epoch
+        for key in self.all_losses:
+            self.all_losses[key].append(float(np.mean(losses[key[4:]])))
+        if self.verbose:
+            print(f"Epoch {epoch} ({time.time() - epoch_start_time:.2f} seconds) ", end="")
+            self.print_losses()
+        if self.save_model_interval != 0 and epoch % self.save_model_interval == 0:
+            self.save_checkpoint(epoch)
+        if self.save_images_interval != 0 and epoch % self.save_images_interval == 0:
+            self.plot_sample_images(num_images=5, use_test_data=False)
+
+    def save_checkpoint(self, epoch: int) -> str:
+        meta = {
+            "model": self.model,
+            "starting_epoch": epoch + 1,
+            "num_epochs": self.num_epochs,
+            "topography": self.topography,
+            "all_losses": self.all_losses,
+            "add_identity_loss": self.add_identity_loss,
+        }
+        model_path = self.create_path(save_type="model")
+        _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
+        state = paired_state_to_jax(self.trainer)  # host copies, taken now
+        if self._async_ckpt is not None:
+            self._async_ckpt.save(model_path, meta, state)
+        else:
+            save_checkpoint(model_path, meta, state)
+        return model_path
+
+    def wait_for_checkpoints(self) -> None:
+        """Join an in-flight async checkpoint write (no-op otherwise)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+
+    # ----------------------------------------------------------- inference
+
+    def generate(self, input_stack):
+        """The generator's inference forward with the f32 parameters:
+        (output NHWC in [-1, 1], background mask (N, H, W))."""
+        return self.trainer.generate(input_stack)
+
+    def calculate_metrics(self, use_test_data: bool = False, seg_model_path: Optional[str] = None):
+        raise _not_ported("calculate_metrics", 6, "Eval slice")
+
+    # --------------------------------------------------------------- plots
+
+    def plot_losses(self) -> None:
+        """(reference models/model.py:424-473)"""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plot_parameters = {
+            "all_losses_discriminator_real": {"colour": "#5F2959", "label": "Discriminator (real)", "plot": 0},
+            "all_losses_discriminator_synthetic": {"colour": "#9F799B", "label": "Discriminator (synthetic)", "plot": 0},
+            "all_losses_generator_synthetic": {"colour": "#7BA4A9", "label": "Generator (synthetic)", "plot": 0},
+            "all_l1_losses_generator_synthetic": {"colour": "black", "label": "L1 loss", "plot": 1},
+        }
+        fig, axes = plt.subplots(nrows=2, ncols=1, figsize=(10, 14))
+        for ax in axes.ravel():
+            ax.tick_params(axis="both", which="major", labelsize=14)
+            ax.set_xlabel("Epoch", fontsize=14)
+            ax.set_ylabel("Loss", fontsize=14)
+            ax.grid(alpha=0.4)
+        for loss, values in self.all_losses.items():
+            p = plot_parameters[loss]
+            axes[p["plot"]].plot(range(1, len(values) + 1), values, c=p["colour"], linestyle="solid",
+                                 label=p["label"], linewidth=2)
+        axes[0].set_title(f"{self.prettify_model_name()} Discriminator and Generator Losses", fontsize=15)
+        axes[1].set_title(f"{self.prettify_model_name()} L1 Losses", fontsize=15)
+        axes[0].legend(fontsize=14)
+        fig.tight_layout()
+        losses_path = self.create_path(save_type="figure", info="losses")
+        print(f"\nSaving losses figure to {losses_path}")
+        fig.savefig(losses_path, bbox_inches="tight")
+        plt.close(fig)
+
+    def plot_sample_images(self, num_images: int, use_test_data: bool) -> None:
+        """(reference models/model.py:542-596)"""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        splits = [("training", self.train_loader), ("validation", self.val_loader)]
+        if use_test_data:
+            splits.append(("test", self.test_loader))
+        num_cols = 4 if self.model_is_attention else 3
+        for split, loader in splits:
+            fig, axes = plt.subplots(nrows=num_images, ncols=num_cols,
+                                     figsize=(num_cols * 5, num_images * 5))
+            axes = np.atleast_2d(axes)
+            for ax in axes.ravel():
+                ax.set_axis_off()
+            plotted = 0
+            for batch in loader.epoch_iter(epoch=self.seed):
+                for b in range(batch["input"].shape[0]):
+                    x, y = batch["input"][b:b + 1], batch["output"][b:b + 1]
+                    out, mask = self.generate(x)
+                    i = plotted
+                    axes[i, 0].imshow(to_display_image(x), vmin=0, vmax=1)
+                    axes[i, 1].imshow(to_display_image(out), vmin=0, vmax=1)
+                    axes[i, num_cols - 1].imshow(to_display_image(y), vmin=0, vmax=1)
+                    axes[i, 0].set_title(f"Input ({batch['names'][b]})")
+                    axes[i, 1].set_title("Generator Output")
+                    axes[i, num_cols - 1].set_title("Ground Truth Output")
+                    if self.model_is_attention:
+                        axes[i, 2].imshow(mask[0].cpu().numpy(), cmap="gray_r")
+                        axes[i, 2].set_title("Attention Mask")
+                    plotted += 1
+                    if plotted >= num_images:
+                        break
+                if plotted >= num_images:
+                    break
+            fig.tight_layout()
+            images_path = self.create_path(save_type="image", info=split)
+            print(f"Saving {split} sample images to {images_path}")
+            fig.savefig(images_path, bbox_inches="tight")
+            plt.close(fig)

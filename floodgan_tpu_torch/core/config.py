@@ -1,8 +1,8 @@
 """Model names, the topography channel contract and the training recipe.
 
-A copy of the tables, ``TrainConfig`` and ``lambda_rule`` in
-floodgan_tpu/core/config.py, so that the port imports nothing of the JAX
-package.
+A copy of the tables, ``prettify_model_name``, ``TrainConfig`` and
+``lambda_rule`` in floodgan_tpu/core/config.py, so that the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +15,13 @@ import dataclasses
 TOPOGRAPHY_CHANNELS = {"all": 9, "map": 6, "dem": 4, "flow": 4, "river": 4, None: 3}
 
 MODEL_NAMES = ("pix2pix", "cyclegan", "attentiongan", "pairedattention")
+
+_PRETTY = {
+    "pix2pix": "Pix2Pix",
+    "cyclegan": "CycleGAN",
+    "attentiongan": "AttentionGAN",
+    "pairedattention": "PairedAttention",
+}
 
 _IS_CYCLE = {
     "pix2pix": False,
@@ -45,6 +52,10 @@ def model_is_cycle(model: str) -> bool:
 
 def model_is_attention(model: str) -> bool:
     return _IS_ATTENTION[_check_model(model)]
+
+
+def prettify_model_name(model: str) -> str:
+    return _PRETTY[_check_model(model)]
 
 
 @dataclasses.dataclass

@@ -17,11 +17,13 @@ The port of floodgan_tpu/serve.py:
                              batch_size=8, image_size=512)
     outputs = engine.predict(normalized_nhwc)    # (B,S,S,3) in [0,1], on the card
 
+    engine = InferenceEngine.from_checkpoint("model.ckpt", batch_size=8,
+                                             image_size=512)
+
     fe = BatchingFrontend(engine)
     img = fe.predict(stack)                      # thread-safe, numpy
 
-Loading ``.ckpt`` files (``from_checkpoint``, ``add_checkpoint``) waits
-for the checkpoint slice of the port.
+``from_checkpoint`` reads the ``.ckpt`` files of either package.
 """
 
 from __future__ import annotations
@@ -36,10 +38,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS
+from floodgan_tpu_torch.ckpt import load_checkpoint
+from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.models.registry import build_generator
+from floodgan_tpu_torch.utils.jax_params import state_dict_from_jax
 
 class InferenceEngine:
     """The serving forward of one attention generator at a fixed shape.
@@ -86,6 +90,20 @@ class InferenceEngine:
         if aot:
             self.predict(torch.zeros((batch_size,) + self.input_shape))
             self._sync()
+
+    @classmethod
+    def from_checkpoint(
+        cls, ckpt_path: str, batch_size: int = 1, image_size: int = 512, **kwargs
+    ) -> "InferenceEngine":
+        """The engine of a ``.ckpt`` file's generator: the model and
+        topography come from its meta, the weights from
+        ``raw["gen_params"]`` (for a cycle-family AttentionGAN file, the
+        A->B generator's, ``raw["gen_params"]["ab"]``)."""
+        meta, raw = load_checkpoint(ckpt_path)
+        model, topography = meta["model"], meta["topography"]
+        tree = raw["gen_params"]["ab"] if model_is_cycle(model) else raw["gen_params"]
+        gen_params = state_dict_from_jax(build_generator(model, TOPOGRAPHY_CHANNELS[topography]), tree)
+        return cls(model, gen_params, topography, batch_size=batch_size, image_size=image_size, **kwargs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -324,6 +342,9 @@ class ModelRepository:
         self._frontends[name] = BatchingFrontend(
             engine, max_delay_ms=max_delay_ms, max_pending=max_pending
         )
+
+    def add_checkpoint(self, name: str, ckpt_path: str, **engine_kwargs) -> None:
+        self.add(name, InferenceEngine.from_checkpoint(ckpt_path, **engine_kwargs))
 
     def frontend(self, name: str) -> BatchingFrontend:
         try:

@@ -1,15 +1,25 @@
-"""Carry generator weights from the JAX package's parameter tree into the
-port's modules.
+"""Carry parameters and Adam state between the JAX package's trees and
+the port's modules, in both directions.
 
-The input is the tree that the JAX ``AttentionGenerator.init(...)["params"]``
-returns, with numpy arrays (or anything ``np.asarray`` takes) as leaves:
-  conv weights   HWIO                  -> OIHW        (transpose 3, 2, 0, 1)
-  convT weights  (kh, kw, C_in, C_out) -> (C_in, C_out, kh, kw)
-                                                     (transpose 2, 3, 0, 1;
+A JAX parameter tree is what ``AttentionGenerator.init(...)["params"]``
+(or the PatchGAN's) returns, with numpy arrays (or anything ``np.asarray``
+takes) as leaves:
+  conv weights   HWIO                  <-> OIHW        (transpose 3, 2, 0, 1)
+  convT weights  (kh, kw, C_in, C_out) <-> (C_in, C_out, kh, kw)
+                                                      (transpose 2, 3, 0, 1;
                  no spatial flip: the JAX twin flips inside the op)
   biases         as they are
 The trunk is stored stacked, ``trunk/conv{1,2}_{weight,bias}`` with a
-leading block axis; block i becomes ``trunk.blocks.i``.
+leading block axis; block i is ``trunk.blocks.i``.
+
+Adam: optax's ``ScaleByAdamState{count, mu, nu}`` (``count`` a 0-d int32,
+``mu``/``nu`` trees shaped like the parameters) is torch Adam's per
+parameter ``{step, exp_avg, exp_avg_sq}``, as
+floodgan_tpu/utils/torch_export.py:64-76 maps it.  torch creates its state
+at the first step, so ``count == 0`` is "no state".
+
+Key order does not matter to either reader; ``ckpt.save_checkpoint``
+writes every map's keys sorted, as JAX does.
 """
 
 from __future__ import annotations
@@ -37,18 +47,22 @@ def _jax_node(tree: Mapping, module_name: str) -> Dict[str, np.ndarray]:
     return {"weight": np.asarray(node["weight"]), "bias": np.asarray(node["bias"])}
 
 
-def state_dict_from_jax(model: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX generator params (a nested mapping of arrays) -> a ``state_dict``
-    for ``model``.  Raises if a shape disagrees or a parameter of the model
-    is missing from the tree."""
-    sd: Dict[str, torch.Tensor] = {}
+def _convs(model: nn.Module):
+    """(module name, module, JAX -> torch weight permutation) of each conv,
+    in registration order."""
     for name, mod in model.named_modules():
         if isinstance(mod, nn.ConvTranspose2d):
-            perm = (2, 3, 0, 1)
+            yield name, mod, (2, 3, 0, 1)
         elif isinstance(mod, nn.Conv2d):
-            perm = (3, 2, 0, 1)
-        else:
-            continue
+            yield name, mod, (3, 2, 0, 1)
+
+
+def state_dict_from_jax(model: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX params (a nested mapping of arrays) -> a ``state_dict`` for
+    ``model`` (the generator or the PatchGAN).  Raises if a shape disagrees
+    or a parameter of the model is missing from the tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mod, perm in _convs(model):
         try:
             node = _jax_node(tree, name)
         except KeyError as e:
@@ -65,3 +79,93 @@ def state_dict_from_jax(model: nn.Module, tree: Mapping) -> Dict[str, torch.Tens
     if missing:
         raise KeyError(f"no JAX parameter for {sorted(missing)}")
     return sd
+
+
+def jax_tree_from_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``state_dict_from_jax``: ``sd`` (tensors named as
+    ``model``'s parameters, on any device) -> the JAX tree of numpy f32
+    arrays, the trunk restacked.  The arrays are copies: later steps do not
+    change them."""
+    tree: dict = {}
+    stacked: Dict[str, list] = {}
+    for name, _mod, perm in _convs(model):
+        leaves = {
+            "weight": np.ascontiguousarray(
+                np.transpose(sd[f"{name}.weight"].detach().cpu().numpy(), np.argsort(perm))),
+            "bias": sd[f"{name}.bias"].detach().cpu().numpy().copy(),
+        }
+        parts = name.split(".")
+        if parts[0] == "trunk":  # trunk.blocks.<i>.conv<j>, in block order
+            for leaf, arr in leaves.items():
+                stacked.setdefault(f"{parts[3]}_{leaf}", []).append(arr)
+            continue
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaves
+    if stacked:
+        tree["trunk"] = {k: np.stack(v) for k, v in stacked.items()}
+    return tree
+
+
+def adam_state_to_jax(model: nn.Module, opt: torch.optim.Adam) -> dict:
+    """torch Adam's state over ``model``'s parameters -> optax's
+    ``{count, mu, nu}`` (zeros and count 0 before the first step)."""
+    mu, nu, steps = {}, {}, set()
+    for name, p in model.named_parameters():
+        st = opt.state.get(p)
+        if st:
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+            steps.add(int(st["step"]))
+        else:
+            mu[name], nu[name] = torch.zeros_like(p), torch.zeros_like(p)
+            steps.add(0)
+    if len(steps) != 1:
+        raise ValueError(f"Adam's parameters were stepped unequally ({sorted(steps)}); optax keeps one count")
+    return {
+        "count": np.asarray(steps.pop(), np.int32),
+        "mu": jax_tree_from_state_dict(model, mu),
+        "nu": jax_tree_from_state_dict(model, nu),
+    }
+
+
+def adam_state_from_jax(model: nn.Module, opt: torch.optim.Adam, jax_opt: Mapping) -> None:
+    """Load optax's ``{count, mu, nu}`` into ``opt``, an Adam over
+    ``model.parameters()`` built by ``train.optim.adam``.  ``count == 0``
+    clears the state; otherwise each parameter gets ``step = count`` (a
+    float32 tensor, as torch keeps it) and its two moments."""
+    count = int(np.asarray(jax_opt["count"]))
+    state = {}
+    if count:
+        mu = state_dict_from_jax(model, jax_opt["mu"])
+        nu = state_dict_from_jax(model, jax_opt["nu"])
+        for i, (name, _p) in enumerate(model.named_parameters()):
+            state[i] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                        "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    # The optimizer's own groups: load_state_dict keeps their settings.
+    opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
+
+
+def paired_state_to_jax(trainer) -> dict:
+    """A ``train.paired.PairedTrainer``'s whole state as the JAX
+    ``PairedState`` tree: ``{gen_params, disc_params, gen_opt, disc_opt}``."""
+    g, d = trainer.generator, trainer.discriminator
+    return {
+        "gen_params": jax_tree_from_state_dict(g, dict(g.named_parameters())),
+        "disc_params": jax_tree_from_state_dict(d, dict(d.named_parameters())),
+        "gen_opt": adam_state_to_jax(g, trainer.gen_opt),
+        "disc_opt": adam_state_to_jax(d, trainer.disc_opt),
+    }
+
+
+@torch.no_grad()
+def load_paired_state(trainer, raw: Mapping) -> None:
+    """Load a JAX ``PairedState`` tree (as ``ckpt.load_checkpoint`` reads
+    it) into a ``PairedTrainer``: both networks' parameters and both Adam
+    states."""
+    for module, opt, params_key, opt_key in (
+        (trainer.generator, trainer.gen_opt, "gen_params", "gen_opt"),
+        (trainer.discriminator, trainer.disc_opt, "disc_params", "disc_opt"),
+    ):
+        module.load_state_dict(state_dict_from_jax(module, raw[params_key]))
+        adam_state_from_jax(module, opt, raw[opt_key])

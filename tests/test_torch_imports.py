@@ -1,5 +1,7 @@
-"""Import guard: the port and chip_smoke.py import no JAX-stack module and
-nothing of the JAX package (only tests import both)."""
+"""Import guard: the port and chip_smoke.py import no JAX-stack module,
+nothing of the JAX package (only tests import both), no pandas or msgpack
+(the card's machine has neither), and matplotlib only inside the plot
+functions (``plot_*``)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack", "floodgan_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack", "floodgan_tpu", "pandas"}
+PLOT_ONLY = {"matplotlib"}
 SCANNED = sorted((ROOT / "floodgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -22,15 +25,32 @@ def imported_top_levels(path: Path):
 
 
 def test_scan_covers_the_port():
-    names = {p.name for p in SCANNED}
-    assert {"serve.py", "kernels.py", "attention.py", "patchgan.py", "paired.py", "microbench_head.py",
-            "chip_smoke.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in SCANNED}
+    port = "floodgan_tpu_torch/"
+    assert {port + m for m in (
+        "serve.py", "ops/kernels.py", "models/attention.py", "models/patchgan.py", "train/paired.py",
+        "tools/microbench_head.py", "ckpt/_msgpack.py", "ckpt/checkpoint.py", "ckpt/migrate.py",
+        "utils/jax_params.py", "utils/profiling.py", "utils/png.py", "data/tiff.py", "data/native.py",
+        "data/splits.py", "data/pipeline.py", "api/paths.py", "api/model.py", "cli/train.py", "cli/predict.py",
+    )} | {"chip_smoke.py"} <= names
+
+
+def plot_function_lines(path: Path):
+    """The line numbers inside functions named plot_*."""
+    lines = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("plot_"):
+            lines.update(range(node.lineno, node.end_lineno + 1))
+    return lines
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [(line, mod) for line, mod in imported_top_levels(path) if mod in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    plots = plot_function_lines(path)
+    outside = [(line, mod) for line, mod in imported_top_levels(path) if mod in PLOT_ONLY and line not in plots]
+    assert not outside, f"{path.relative_to(ROOT)} imports {outside} outside a plot_* function"
 
 
 def test_guard_compares_top_level_names_exactly(tmp_path):
@@ -41,3 +61,13 @@ def test_guard_compares_top_level_names_exactly(tmp_path):
     )
     found = [m for _, m in imported_top_levels(src) if m in FORBIDDEN]
     assert found == ["floodgan_tpu", "jax"]
+
+
+def test_guard_allows_matplotlib_only_in_plot_functions(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "def plot_losses():\n    import matplotlib.pyplot as plt\n\n"
+        "def generate():\n    import matplotlib\n"
+    )
+    plots = plot_function_lines(src)
+    assert [(line, line in plots) for line, m in imported_top_levels(src) if m in PLOT_ONLY] == [(2, True), (5, False)]
