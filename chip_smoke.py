@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width: serving and paired
-training of PairedAttention (topography "all", 9 input channels) at 512^2,
-and the content-head microbench (a ConvT 128->64 to 512^2, reflect pad,
-the 7x7 64->27 head conv) at batch 8 in bf16.  It fails unless every phase
+Drives the port's main paths at full width: serving and paired training of
+PairedAttention (topography "all", 9 input channels) at 512^2, the
+content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
+64->27 head conv) at batch 8 in bf16, the training and predict CLIs, and
+GAN evaluation with the segmentation U-Net.  It fails unless every phase
 passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
@@ -43,7 +44,7 @@ passes:
               K5 launches once per raw_pallasfence forward.
 9. cli      - the paired-training CLI end to end on 1024^2 tiles written
               into a temporary directory (12 train images, each original and
-              flipped, 2 validation, 2 test; 9-channel inputs, 3-channel
+              flipped, 8 validation, 2 test; 9-channel inputs, 3-channel
               outputs, uniform from the seed): python -m
               floodgan_tpu_torch.cli.train through its main(), resized to
               512^2, batch 8, bf16, 3 epochs, a .ckpt each epoch; each of its
@@ -59,7 +60,30 @@ passes:
               loaded samples/s beside [train]'s step-only rate, the share of
               each epoch spent blocked in the loader, checkpoint save and load
               times and size, and predict latency.
-10. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
+10. eval    - GAN evaluation and the segmentation U-Net, beside [cli]'s
+              dataset: a masks fixture of 1024^2 tiles (12 train, 2
+              validation, 2 test; 3-channel image, 1-channel {0, 1} mask);
+              python -m floodgan_tpu_torch.cli.segment --train (the
+              full-width U-Net, batch 1, f32, 2 epochs, a .ckpt each; finite
+              losses, every tensor moved, no K1-K5 launch); a resume of its
+              .ckpt bit for bit and the seg train step's time; python -m
+              floodgan_tpu_torch.cli.evaluate --calculate_metrics
+              --segmentation_model_path on [cli]'s epoch-3 .ckpt and its 8
+              validation images at 512^2, batch 8, LPIPS on the seed-47
+              fallback weights (each generator forward launches K1 25 times
+              and K3 once, the U-Net and the metrics nothing; PSNR, SSIM,
+              MS-SSIM finite; the CSV's 15 columns in JAX's order); the
+              loop's stages timed (generator, image metrics, the two U-Net
+              forwards, LPIPS), eval images/s and peak memory; the card
+              against the CPU on the same .ckpt files at 256^2, batch 2
+              (generator, per-image PSNR, SSIM, MS-SSIM, LPIPS, U-Net logits,
+              confusion counts away from the threshold); ms_ssim on the card
+              against tests/test_metrics.py's float64 goldens (the TF32
+              guard); python -m floodgan_tpu_torch.cli.predict
+              --segmentation_model_path (gray {0, 1} mask PNGs); and
+              SegmentationModel.calculate_metrics on the masks' validation
+              split.
+11. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
               off) on the card and on the CPU (plain versions): step-1 and
               step-2 losses.
 
@@ -71,9 +95,11 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -132,9 +158,51 @@ TOL_TRAIN_STEP2 = 2e-3
 # f32 weights bit for bit, so the engine of the file and the in-memory model
 # run the same function on the same weights.
 CLI_TILE = 1024
-CLI_SPLITS = (("train", 12), ("validation", 2), ("test", 2))
+CLI_SPLITS = (("train", 12), ("validation", BATCH), ("test", 2))
 CLI_EPOCHS = 3
 TOL_CKPT_PREDICT = 1e-6
+# [eval]: the masks fixture at the xBD tile size (3-channel images, 1-channel
+# {0, 1} masks), the seg CLI's epochs, and the card against the CPU on the
+# same checkpoints at EVAL_CMP_SIZE, batch EVAL_CMP_BATCH.
+CARD = "cuda"
+MASK_SPLITS = (("train", 12), ("validation", 2), ("test", 2))
+SEG_EPOCHS = 2
+SEG_LR = 1e-4
+EVAL_CMP_SIZE = 256
+EVAL_CMP_BATCH = 2
+EVAL_RUNS = 5
+TOL_EVAL_GEN = 1e-3     # generator outputs, as in [card-cpu]
+TOL_EVAL_PSNR = 1e-5    # relative; the metrics below run on the same images on both
+TOL_EVAL_METRIC = 1e-4  # SSIM, MS-SSIM, LPIPS, absolute
+TOL_EVAL_LOGITS = 1e-3  # U-Net logits, of max |logit| (cuDNN may pick Winograd or FFT for f32 convs)
+NEAR_THRESHOLD = 1e-4   # |logit| within which the card and the CPU may fall on
+                        # opposite sides of sigmoid > 0.5 (at least; the band
+                        # widens to the measured logit difference)
+TOL_GOLDEN = 2e-5
+# The metric CSV's columns in the JAX package's order
+# (floodgan_tpu/api/model.py:614-619).
+JAX_METRIC_COLUMNS = (
+    "PSNR", "SSIM", "MS-SSIM", "LPIPS", "MSE", "Accuracy", "F1_Flood", "Precision_Flood", "Recall_Flood",
+    "F1_No_Flood", "Precision_No_Flood", "Recall_No_Flood", "IoU_Flood", "IoU_No_Flood", "Inference",
+)
+# tests/test_metrics.py:110-126: float64 goldens of the 5-scale MS-SSIM on
+# three 192^2 pairs; low-precision Gaussian convs (TF32 here) push the deep
+# scales' CS over 1.
+_MS_SSIM_GOLDENS = {
+    "noise_0.05": 0.98805573,
+    "noise_0.2": 0.84920936,
+    "blurless_shift": 0.99547297,
+}
+
+
+def _ms_ssim_golden_cases():
+    rng = np.random.default_rng(47)
+    x = rng.random((192, 192, 3)).astype(np.float32)
+    return x, {
+        "noise_0.05": np.clip(x + rng.normal(0, 0.05, x.shape), 0, 1).astype(np.float32),
+        "noise_0.2": np.clip(x + rng.normal(0, 0.2, x.shape), 0, 1).astype(np.float32),
+        "blurless_shift": np.clip(x * 0.9 + 0.05, 0, 1).astype(np.float32),
+    }
 
 
 class SmokeFailure(RuntimeError):
@@ -774,6 +842,30 @@ def phase_head(smi) -> dict:
     return counts
 
 
+class _Launches:
+    """The kernels' launch counters around runs of a main path: ``zero``
+    before a run, ``read`` after it (checked against the expected counts and
+    added to ``total``)."""
+
+    def __init__(self):
+        from floodgan_tpu_torch.ops import kernels
+
+        self.counters = kernels.LAUNCHES
+        self.total = {k: 0 for k in self.counters}
+
+    def zero(self) -> None:
+        for k in self.counters:
+            self.counters[k] = 0
+
+    def read(self, what: str, want: dict) -> dict:
+        torch.cuda.synchronize()
+        got = dict(self.counters)
+        check(got == want, f"{what} launched {got}, expected {want}")
+        for k in self.total:
+            self.total[k] += got[k]
+        return got
+
+
 def _write_cli_fixture(root: str, rng) -> list:
     """The [cli] dataset on disk, in the reference layout: dataset_input/,
     dataset_output/ and metadata/dataset_split.csv (best_DEM == same_DEM,
@@ -827,13 +919,12 @@ def _epoch_line(st: dict) -> str:
             f"{st['post_cache_hits']}/{st['batches']}; loader worker ms: {stages}")
 
 
-def phase_cli(smi, step_rate: float) -> dict:
-    """The paired-training CLI end to end on 1024^2 tiles (module docstring,
-    phase 9).  Returns the launch counts of its runs."""
+def phase_cli(smi, step_rate: float, root: str) -> tuple:
+    """The paired-training CLI end to end on 1024^2 tiles written under
+    ``root`` (module docstring, phase 9).  Returns the launch counts of its
+    runs, the epoch-3 ``.ckpt`` and the test inputs."""
     import os
     import re
-    import shutil
-    import tempfile
 
     from floodgan_tpu_torch.api import model as api_model
     from floodgan_tpu_torch.ckpt import load_checkpoint
@@ -841,23 +932,10 @@ def phase_cli(smi, step_rate: float) -> dict:
     from floodgan_tpu_torch.cli import train as cli_train
     from floodgan_tpu_torch.data import native, tiff
     from floodgan_tpu_torch.data.transforms import denormalize
-    from floodgan_tpu_torch.ops import kernels
     from floodgan_tpu_torch.serve import InferenceEngine, ModelRepository
 
-    total = {k: 0 for k in kernels.LAUNCHES}
-
-    def zero():
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
-
-    def read(what, want):
-        torch.cuda.synchronize()
-        got = dict(kernels.LAUNCHES)
-        check(got == want, f"{what} launched {got}, expected {want}")
-        for k in total:
-            total[k] += got[k]
-        return got
-
+    launches = _Launches()
+    zero, read, total = launches.zero, launches.read, launches.total
     snaps, timings, models = {}, [], []
 
     class Recorder(api_model.Model):
@@ -876,138 +954,469 @@ def phase_cli(smi, step_rate: float) -> dict:
             if not models or models[-1] is not self:
                 models.append(self)
 
-    root = tempfile.mkdtemp(prefix="floodgan_cli_")
+    t0 = time.perf_counter()
+    tests = _write_cli_fixture(root, np.random.default_rng(SEED + 5))
+    on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    say("cli", f"fixture: {sum(n for _, n in CLI_SPLITS)} images of {CLI_TILE}^2 (9 + 3 channels, f32), "
+               f"{on_disk / 2**30:.2f} GiB, written in {time.perf_counter() - t0:.2f} s")
+    flags = ["--model=PairedAttention", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
+             f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
+             f"--batch_size={BATCH}", "--compute_dtype=bfloat16", f"--num_epochs={CLI_EPOCHS}",
+             "--save_model_interval=1", "--verbose"]
+    n_train = 2 * dict(CLI_SPLITS)["train"]
+    steps = CLI_EPOCHS * -(-n_train // BATCH)
+    decoded = dict(native.BATCHES)
+    saved_model = api_model.Model
+    api_model.Model = Recorder
+    try:
+        zero()
+        t0 = time.perf_counter()
+        first = cli_train.main(flags)
+        wall = time.perf_counter() - t0
+        read(f"the CLI's {steps} steps", {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()})
+    finally:
+        api_model.Model = saved_model
+    served = {k: native.BATCHES[k] - decoded[k] for k in decoded}
+    losses = {k: v[-1] for k, v in first.all_losses.items()}
+    check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in first.all_losses.values()),
+          f"CLI losses {first.all_losses}")
+    ckpts = sorted(os.listdir(os.path.join(root, "models")))
+    pattern = (r"PairedAttention_epoch(\d)_allTopography_usaData_bestDEM_resize%d_cropNone_"
+               r"date\d{4}(-\d\d){5}\.ckpt" % S)
+    check(len(ckpts) == CLI_EPOCHS and all(re.fullmatch(pattern, c) for c in ckpts)
+          and sorted(int(re.fullmatch(pattern, c).group(1)) for c in ckpts) == [1, 2, 3],
+          f"checkpoints {ckpts}")
+    first_dir = os.path.join(root, "first_run")
+    shutil.move(os.path.join(root, "models"), first_dir)
+    by_epoch = {int(re.fullmatch(pattern, c).group(1)): os.path.join(first_dir, c) for c in ckpts}
+
+    stats = first.epoch_stats
+    decode_s = stats[0]["stage_seconds"]["decode"]
+    decode_mb = n_train * CLI_TILE * CLI_TILE * 12 * 4 / 1e6
+    say("cli", f"python -m floodgan_tpu_torch.cli.train {' '.join(flags[:3] + flags[6:])}: {wall:.2f} s; "
+               f"{steps} steps launched {total}; final losses {json.dumps(losses)}")
+    say("cli", f"decoder: native {served['native']} batches, python {served['python']} batches; epoch 1 "
+               f"decoded {decode_mb:.0f} MB in {decode_s:.3f} worker-seconds ({decode_mb / decode_s:.0f} MB/s)")
+    for st in stats:
+        say("cli", _epoch_line(st))
+    cached = stats[1:]
+    rate = sum(s["samples"] for s in cached) / sum(s["seconds"] for s in cached)
+    say("cli", f"epochs 2-{CLI_EPOCHS} (post-transform cache): {rate:.2f} samples/s against [train]'s "
+               f"step-only {step_rate:.2f} ({rate / step_rate:.3f}); blocked in the loader "
+               f"{sum(s['loader_wait_seconds'] for s in cached) / sum(s['seconds'] for s in cached):.3f} "
+               f"of those epochs ({smi})")
+    save_s = [t for t, _ in timings]
+    say("cli", f"checkpoint save ms {', '.join(f'{t * 1e3:.1f}' for t in save_s)} "
+               f"({timings[0][1]} bytes, {timings[0][1] / 2**20:.1f} MiB each)")
+    check(all(np.isfinite([s["seconds"] for s in stats])), "epoch times")
+
+    # ---- resume from the epoch-1 file, bit for bit ----
+    t0 = time.perf_counter()
+    load_checkpoint(by_epoch[1])
+    load_ms = (time.perf_counter() - t0) * 1e3
+    snap = snaps["epoch1"]
+    t0 = time.perf_counter()
+    resumed = Recorder(load_pretrained_model=True, pretrained_model_path=by_epoch[1], dataset_subset="usa",
+                       dataset_dem="best", data_path=root, metadata_dir=f"{root}/metadata", resize=S,
+                       batch_size=BATCH, compute_dtype="bfloat16", save_model_interval=1)
+    resume_s = time.perf_counter() - t0
+    check(resumed.starting_epoch == 2, f"resumed at epoch {resumed.starting_epoch}")
+    check(resumed.all_losses == snap["all_losses"], f"loss history {resumed.all_losses} != {snap['all_losses']}")
+    now = _train_snapshot(resumed)
+    differ = [k for k in snap if k not in ("all_losses", "epoch") and not (
+        now[k].dtype == snap[k].dtype and now[k].shape == snap[k].shape and torch.equal(now[k], snap[k]))]
+    check(not differ and set(now) == set(snap), f"resume differs from the epoch-1 snapshot in {differ[:5]}")
+    zero()
+    resumed.train_paired()
+    resume_steps = (CLI_EPOCHS - 1) * -(-n_train // BATCH)
+    read(f"the resumed {resume_steps} steps", {k: v * resume_steps for k, v in TRAIN_STEP_LAUNCHES.items()})
+    check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in resumed.all_losses.values()),
+          f"resumed losses {resumed.all_losses}")
+    say("cli", f"resume from the epoch-1 .ckpt: load_checkpoint {load_ms:.1f} ms, Model set-up {resume_s:.2f} s; "
+               f"starting epoch 2, loss history and {len(snap) - 2} tensors (parameters, exp_avg, exp_avg_sq, "
+               f"step) bit for bit; epochs 2-{CLI_EPOCHS} losses "
+               f"{json.dumps({k: v[1:] for k, v in resumed.all_losses.items()})}")
+    del resumed
+
+    # ---- predict from the epoch-3 file ----
+    out_dir = os.path.join(root, "predictions")
+    zero()
+    t0 = time.perf_counter()
+    pngs = cli_predict.main(["--pretrained_model_path", by_epoch[3], "--inputs", *tests,
+                             "--output_dir", out_dir, "--resize", str(S)])
+    cli_s = time.perf_counter() - t0
+    read("the predict CLI (its warm-up forward and one batch)", {k: v * 2 for k, v in SERVE_LAUNCHES.items()})
+    check(len(pngs) == len(tests) and all(os.path.getsize(p) > 0 for p in pngs), f"PNGs {pngs}")
+
+    engine = InferenceEngine.from_checkpoint(by_epoch[3], batch_size=len(tests), image_size=S)
+    stacks = np.stack([np.asarray(tiff.imread(f), np.float32) for f in tests])
+    x = engine.preprocess(stacks, resize=S)
+    zero()
+    got = engine.predict(x)
+    read("one engine forward", SERVE_LAUNCHES)
+    model3 = models[0]
+    want = denormalize(model3.generate(x)[0])
+    torch.cuda.synchronize()
+    diff = float((got - want).abs().max())
+    check(tuple(got.shape) == (len(tests), S, S, 3) and bool(torch.isfinite(got).all()),
+          f"engine output {tuple(got.shape)}")
+    check(diff <= TOL_CKPT_PREDICT, f"engine of the epoch-3 .ckpt against the trained model: {diff}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.predict(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    repo = ModelRepository()
+    try:
+        repo.add_checkpoint("paired", by_epoch[3], batch_size=1, image_size=S)
+        answer = repo.predict("paired", x[0].cpu().numpy())
+    finally:
+        repo.close()
+    check(answer.shape == (S, S, 3) and np.abs(answer - got[0].cpu().numpy()).max() <= 1e-3,
+          "repository answer")
+    say("cli", f"python -m floodgan_tpu_torch.cli.predict on {len(tests)} {CLI_TILE}^2 inputs: {len(pngs)} PNGs "
+               f"in {cli_s:.2f} s; InferenceEngine.from_checkpoint(epoch 3) against the trained model's "
+               f"generate: max_abs_diff {diff:.3g} (tol {TOL_CKPT_PREDICT:g}); predict latency "
+               f"{statistics.median(times) * 1e3:.3f} ms per batch of {len(tests)} at {S}^2 (median of 5); "
+               f"ModelRepository.add_checkpoint answered one request ({smi})")
+    del engine, first, model3
+    models.clear()
+    torch.cuda.empty_cache()
+    return total, by_epoch[3], tests
+
+
+def _write_masks_fixture(root: str, rng) -> None:
+    """The [eval] masks dataset on disk, in the reference layout:
+    masks_input/ (3-channel f32 tiles), masks_output/ (1-channel {0, 1}
+    masks, here the first channel above 0.5, so the U-Net can learn them) and
+    metadata/masks_metadata.csv."""
+    import csv
+    import os
+
+    from floodgan_tpu_torch.data import tiff
+
+    for d in ("masks_input", "masks_output", "metadata"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rows = []
+    for split, n in MASK_SPLITS:
+        for i in range(n):
+            name = f"original_hurricane-harvey_{split[:3]}{i:05d}_0.tif"
+            img = rng.random((CLI_TILE, CLI_TILE, 3), dtype=np.float32)
+            tiff.imwrite(os.path.join(root, "masks_input", name), img)
+            tiff.imwrite(os.path.join(root, "masks_output", name), (img[..., 0] > 0.5).astype(np.float32))
+            rows.append({"image": name, "split": split, "version": "original", "country": "usa"})
+    with open(os.path.join(root, "metadata", "masks_metadata.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+
+
+def _read_png_rgba(path: str) -> np.ndarray:
+    """The pixels of a PNG that utils/png.py wrote (8-bit RGBA, filter 0)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, (w, h) = 8, b"", (0, 0)
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    check(bool((rows[:, 0] == 0).all()), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def _conv_flops(module, x) -> float:
+    """2 x the multiply-adds of ``module``'s convolutions on ``x``, counted
+    by forward hooks (a transposed conv counts its input pixels)."""
+    macs = []
+
+    def hook(m, inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            macs.append(inp[0].numel() * m.out_channels * k)
+        else:
+            macs.append(out.numel() * m.in_channels // m.groups * k)
+
+    convs = [m for m in module.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    hooks = [m.register_forward_hook(hook) for m in convs]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2.0 * sum(macs)
+
+
+def _seg_snapshot(model) -> dict:
+    """Host copies of what a seg resume must restore."""
+    t = model.trainer
+    snap = {}
+    for name, p in t.model.named_parameters():
+        snap[name] = p.detach().cpu().clone()
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            snap[f"{name}:{k}"] = t.opt.state[p][k].detach().cpu().clone()
+    return snap
+
+
+def phase_eval(smi, root: str, gan_ckpt: str, tests: list) -> dict:
+    """GAN evaluation and the segmentation U-Net end to end (module
+    docstring, phase 10).  Returns the launch counts of its runs."""
+    import csv
+    import glob
+    import os
+    import re
+
+    from floodgan_tpu_torch.api.model import Model
+    from floodgan_tpu_torch.api.segmentation import SegmentationModel
+    from floodgan_tpu_torch.cli import evaluate as cli_evaluate
+    from floodgan_tpu_torch.cli import predict as cli_predict
+    from floodgan_tpu_torch.cli import segment as cli_segment
+    from floodgan_tpu_torch.data.transforms import denormalize
+    from floodgan_tpu_torch.eval.metrics import confusion_counts_per_image, image_pair_metrics, ms_ssim
+    from floodgan_tpu_torch.models.layers import init_weights
+    from floodgan_tpu_torch.models.unet import UNet
+
+    launches = _Launches()
+    zero, read, total = launches.zero, launches.read, launches.total
+    none = {k: 0 for k in total}
+    meta = os.path.join(root, "metadata")
+    saved_env = os.environ.get("FLOODGAN_LPIPS_FALLBACK")
+    os.environ["FLOODGAN_LPIPS_FALLBACK"] = "1"  # LPIPS's AlexNet on seed-47 weights, on the card
     try:
         t0 = time.perf_counter()
-        tests = _write_cli_fixture(root, np.random.default_rng(SEED + 5))
-        on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
-        say("cli", f"fixture: {sum(n for _, n in CLI_SPLITS)} images of {CLI_TILE}^2 (9 + 3 channels, f32), "
-                   f"{on_disk / 2**30:.2f} GiB, written in {time.perf_counter() - t0:.2f} s")
-        flags = ["--model=PairedAttention", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
-                 f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
-                 f"--batch_size={BATCH}", "--compute_dtype=bfloat16", f"--num_epochs={CLI_EPOCHS}",
-                 "--save_model_interval=1", "--verbose"]
-        n_train = 2 * dict(CLI_SPLITS)["train"]
-        steps = CLI_EPOCHS * -(-n_train // BATCH)
-        decoded = dict(native.BATCHES)
-        saved_model = api_model.Model
-        api_model.Model = Recorder
-        try:
-            zero()
-            t0 = time.perf_counter()
-            first = cli_train.main(flags)
-            wall = time.perf_counter() - t0
-            read(f"the CLI's {steps} steps", {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()})
-        finally:
-            api_model.Model = saved_model
-        served = {k: native.BATCHES[k] - decoded[k] for k in decoded}
-        losses = {k: v[-1] for k, v in first.all_losses.items()}
-        check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in first.all_losses.values()),
-              f"CLI losses {first.all_losses}")
-        ckpts = sorted(os.listdir(os.path.join(root, "models")))
-        pattern = (r"PairedAttention_epoch(\d)_allTopography_usaData_bestDEM_resize%d_cropNone_"
-                   r"date\d{4}(-\d\d){5}\.ckpt" % S)
-        check(len(ckpts) == CLI_EPOCHS and all(re.fullmatch(pattern, c) for c in ckpts)
-              and sorted(int(re.fullmatch(pattern, c).group(1)) for c in ckpts) == [1, 2, 3],
-              f"checkpoints {ckpts}")
-        first_dir = os.path.join(root, "first_run")
-        shutil.move(os.path.join(root, "models"), first_dir)
-        by_epoch = {int(re.fullmatch(pattern, c).group(1)): os.path.join(first_dir, c) for c in ckpts}
+        _write_masks_fixture(root, np.random.default_rng(SEED + 6))
+        say("eval", f"masks fixture: {sum(n for _, n in MASK_SPLITS)} tiles of {CLI_TILE}^2 "
+                    f"({', '.join(f'{n} {s}' for s, n in MASK_SPLITS)}; 3-channel image, 1-channel mask), "
+                    f"written in {time.perf_counter() - t0:.2f} s")
 
-        stats = first.epoch_stats
-        decode_s = stats[0]["stage_seconds"]["decode"]
-        decode_mb = n_train * CLI_TILE * CLI_TILE * 12 * 4 / 1e6
-        say("cli", f"python -m floodgan_tpu_torch.cli.train {' '.join(flags[:3] + flags[6:])}: {wall:.2f} s; "
-                   f"{steps} steps launched {total}; final losses {json.dumps(losses)}")
-        say("cli", f"decoder: native {served['native']} batches, python {served['python']} batches; epoch 1 "
-                   f"decoded {decode_mb:.0f} MB in {decode_s:.3f} worker-seconds ({decode_mb / decode_s:.0f} MB/s)")
-        for st in stats:
-            say("cli", _epoch_line(st))
-        cached = stats[1:]
-        rate = sum(s["samples"] for s in cached) / sum(s["seconds"] for s in cached)
-        say("cli", f"epochs 2-{CLI_EPOCHS} (post-transform cache): {rate:.2f} samples/s against [train]'s "
-                   f"step-only {step_rate:.2f} ({rate / step_rate:.3f}); blocked in the loader "
-                   f"{sum(s['loader_wait_seconds'] for s in cached) / sum(s['seconds'] for s in cached):.3f} "
-                   f"of those epochs ({smi})")
-        save_s = [t for t, _ in timings]
-        say("cli", f"checkpoint save ms {', '.join(f'{t * 1e3:.1f}' for t in save_s)} "
-                   f"({timings[0][1]} bytes, {timings[0][1] / 2**20:.1f} MiB each)")
-        check(all(np.isfinite([s["seconds"] for s in stats])), "epoch times")
-
-        # ---- resume from the epoch-1 file, bit for bit ----
-        t0 = time.perf_counter()
-        load_checkpoint(by_epoch[1])
-        load_ms = (time.perf_counter() - t0) * 1e3
-        snap = snaps["epoch1"]
-        t0 = time.perf_counter()
-        resumed = Recorder(load_pretrained_model=True, pretrained_model_path=by_epoch[1], dataset_subset="usa",
-                           dataset_dem="best", data_path=root, metadata_dir=f"{root}/metadata", resize=S,
-                           batch_size=BATCH, compute_dtype="bfloat16", save_model_interval=1)
-        resume_s = time.perf_counter() - t0
-        check(resumed.starting_epoch == 2, f"resumed at epoch {resumed.starting_epoch}")
-        check(resumed.all_losses == snap["all_losses"], f"loss history {resumed.all_losses} != {snap['all_losses']}")
-        now = _train_snapshot(resumed)
-        differ = [k for k in snap if k not in ("all_losses", "epoch") and not (
-            now[k].dtype == snap[k].dtype and now[k].shape == snap[k].shape and torch.equal(now[k], snap[k]))]
-        check(not differ and set(now) == set(snap), f"resume differs from the epoch-1 snapshot in {differ[:5]}")
+        # ---- the segmentation CLI trains the U-Net ----
+        seg_flags = ["--dataset_subset=usa", f"--data_path={root}", f"--metadata_dir={meta}"]
         zero()
-        resumed.train_paired()
-        resume_steps = (CLI_EPOCHS - 1) * -(-n_train // BATCH)
-        read(f"the resumed {resume_steps} steps", {k: v * resume_steps for k, v in TRAIN_STEP_LAUNCHES.items()})
-        check(all(len(v) == CLI_EPOCHS and all(np.isfinite(v)) for v in resumed.all_losses.values()),
-              f"resumed losses {resumed.all_losses}")
-        say("cli", f"resume from the epoch-1 .ckpt: load_checkpoint {load_ms:.1f} ms, Model set-up {resume_s:.2f} s; "
-                   f"starting epoch 2, loss history and {len(snap) - 2} tensors (parameters, exp_avg, exp_avg_sq, "
-                   f"step) bit for bit; epochs 2-{CLI_EPOCHS} losses "
-                   f"{json.dumps({k: v[1:] for k, v in resumed.all_losses.items()})}")
-        del resumed
-
-        # ---- predict from the epoch-3 file ----
-        out_dir = os.path.join(root, "predictions")
-        zero()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pngs = cli_predict.main(["--pretrained_model_path", by_epoch[3], "--inputs", *tests,
-                                 "--output_dir", out_dir, "--resize", str(S)])
-        cli_s = time.perf_counter() - t0
-        read("the predict CLI (its warm-up forward and one batch)", {k: v * 2 for k, v in SERVE_LAUNCHES.items()})
-        check(len(pngs) == len(tests) and all(os.path.getsize(p) > 0 for p in pngs), f"PNGs {pngs}")
+        seg_model = cli_segment.main(["--train", *seg_flags, f"--num_epochs={SEG_EPOCHS}", "--save_model_interval=1",
+                                      "--batch_size=1", "--verbose"])
+        seg_wall = time.perf_counter() - t0
+        seg_peak = torch.cuda.max_memory_allocated() / 2**30
+        read("the segmentation CLI's training", none)
+        check(len(seg_model.all_losses) == SEG_EPOCHS and all(np.isfinite(seg_model.all_losses))
+              and all(np.isfinite(seg_model.all_accuracies)), f"seg losses {seg_model.all_losses}")
+        unet = init_weights(UNet(), torch.Generator().manual_seed(SEED))
+        start = unet.state_dict()
+        # Conv FLOPs scale with the pixels: count at 64^2 on the CPU, scale up.
+        flops_per_px = _conv_flops(unet, torch.zeros(1, 3, 64, 64)) / 64 ** 2
+        now = {k: v.detach().cpu() for k, v in seg_model.trainer.model.state_dict().items()}
+        moved = [k for k in start if not torch.equal(start[k], now[k])]
+        check(len(moved) == len(start), f"the U-Net left {len(start) - len(moved)} of {len(start)} tensors unchanged")
+        pattern = r"SegmentationModel_epoch(\d)_usaData_date\d{4}(-\d\d){5}\.ckpt"
+        seg_ckpts = {int(re.fullmatch(pattern, os.path.basename(p)).group(1)): p
+                     for p in glob.glob(os.path.join(root, "models", "SegmentationModel_*.ckpt"))}
+        check(sorted(seg_ckpts) == list(range(1, SEG_EPOCHS + 1)), f"seg checkpoints {sorted(seg_ckpts)}")
+        seg_ckpt = seg_ckpts[SEG_EPOCHS]
+        n_steps = SEG_EPOCHS * dict(MASK_SPLITS)["train"]
+        say("eval", f"python -m floodgan_tpu_torch.cli.segment --train (full-width U-Net, {CLI_TILE}^2, batch 1, f32, "
+                    f"{SEG_EPOCHS} epochs, {n_steps} steps): {seg_wall:.2f} s, peak {seg_peak:.2f} GiB, launches "
+                    f"{none}; losses {seg_model.all_losses}, accuracies {seg_model.all_accuracies}; "
+                    f"all {len(start)} tensors moved ({smi})")
 
-        engine = InferenceEngine.from_checkpoint(by_epoch[3], batch_size=len(tests), image_size=S)
-        stacks = np.stack([np.asarray(tiff.imread(f), np.float32) for f in tests])
-        x = engine.preprocess(stacks, resize=S)
-        zero()
-        got = engine.predict(x)
-        read("one engine forward", SERVE_LAUNCHES)
-        model3 = models[0]
-        want = denormalize(model3.generate(x)[0])
-        torch.cuda.synchronize()
-        diff = float((got - want).abs().max())
-        check(tuple(got.shape) == (len(tests), S, S, 3) and bool(torch.isfinite(got).all()),
-              f"engine output {tuple(got.shape)}")
-        check(diff <= TOL_CKPT_PREDICT, f"engine of the epoch-3 .ckpt against the trained model: {diff}")
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            engine.predict(x)
+        # ---- a resume of the seg .ckpt, bit for bit ----
+        snap = _seg_snapshot(seg_model)
+        again = SegmentationModel(pretrained_model_path=seg_ckpt, skip_data=True, verbose=False)
+        check((again.current_epoch, again.all_losses, again.all_accuracies)
+              == (SEG_EPOCHS + 1, seg_model.all_losses, seg_model.all_accuracies),
+              f"resumed at epoch {again.current_epoch}, losses {again.all_losses}")
+        back = _seg_snapshot(again)
+        differ = [k for k in snap if not (back[k].dtype == snap[k].dtype and torch.equal(back[k], snap[k]))]
+        check(not differ and set(back) == set(snap), f"seg resume differs in {differ[:5]}")
+
+        # ---- the seg train step, timed on the resumed trainer ----
+        batch = next(iter(seg_model.train_loader.epoch_iter(1)))
+        step_s = []
+        for _ in range(EVAL_RUNS + 2):
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        repo = ModelRepository()
-        try:
-            repo.add_checkpoint("paired", by_epoch[3], batch_size=1, image_size=S)
-            answer = repo.predict("paired", x[0].cpu().numpy())
-        finally:
-            repo.close()
-        check(answer.shape == (S, S, 3) and np.abs(answer - got[0].cpu().numpy()).max() <= 1e-3,
-              "repository answer")
-        say("cli", f"python -m floodgan_tpu_torch.cli.predict on {len(tests)} {CLI_TILE}^2 inputs: {len(pngs)} PNGs "
-                   f"in {cli_s:.2f} s; InferenceEngine.from_checkpoint(epoch 3) against the trained model's "
-                   f"generate: max_abs_diff {diff:.3g} (tol {TOL_CKPT_PREDICT:g}); predict latency "
-                   f"{statistics.median(times) * 1e3:.3f} ms per batch of {len(tests)} at {S}^2 (median of 5); "
-                   f"ModelRepository.add_checkpoint answered one request ({smi})")
-        del engine, first, model3
-        models.clear()
+            t0 = time.perf_counter()
+            m = again.trainer.train_step(batch["input"], batch["output"], SEG_LR)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        check(np.isfinite(float(m["loss"])), "seg step loss")
+        seg_step_ms = statistics.median(step_s[2:]) * 1e3
+        step_flops = 3 * flops_per_px * CLI_TILE ** 2  # the forward and about twice it backward
+        say("eval", f"seg resume from the epoch-{SEG_EPOCHS} .ckpt: epoch, loss and accuracy history and {len(snap)} "
+                    f"tensors (parameters, exp_avg, exp_avg_sq, step) bit for bit; seg train step at {CLI_TILE}^2 "
+                    f"batch 1 f32: {seg_step_ms:.2f} ms (median of {EVAL_RUNS}, host clock), "
+                    f"{step_flops / 1e12:.3f} TFLOP (3x the forward's convs), "
+                    f"{step_flops / seg_step_ms / 1e9:.1f} TFLOP/s ({smi})")
+        del again, seg_model
+
+        # ---- the evaluate CLI on [cli]'s epoch-3 GAN ----
+        eval_flags = ["--model=PairedAttention", "--dataset_subset=usa", "--dataset_dem=best", f"--data_path={root}",
+                      f"--metadata_dir={meta}", "--topography=all", f"--resize={S}", f"--batch_size={BATCH}",
+                      f"--pretrained_model_path={gan_ckpt}", "--calculate_metrics",
+                      f"--segmentation_model_path={seg_ckpt}"]
+        n_val = dict(CLI_SPLITS)["validation"]
+        forwards = -(-n_val // BATCH)
+        zero()
+        t0 = time.perf_counter()
+        model = cli_evaluate.main(eval_flags)
+        eval_wall = time.perf_counter() - t0
+        read(f"the evaluate CLI's loop ({forwards} generator forwards)",
+             {k: v * forwards for k, v in SERVE_LAUNCHES.items()})
+        check(model.lpips is not None, "LPIPS did not load with FLOODGAN_LPIPS_FALLBACK=1")
+        (metric_csv,) = glob.glob(os.path.join(root, "metrics", "PairedAttention_*.csv"))
+        with open(metric_csv, newline="") as f:
+            header, row = list(csv.reader(f))
+        check(header == [""] + list(JAX_METRIC_COLUMNS), f"metric CSV columns {header}")
+        cells = dict(zip(header[1:], row[1:]))
+        check(all(np.isfinite(float(cells[k])) for k in ("PSNR", "SSIM", "MS-SSIM", "LPIPS")),
+              f"image metrics {cells}")
+        check(all(0.0 <= float(cells[k]) <= 1.0 for k in JAX_METRIC_COLUMNS[4:-1]), f"mask metrics {cells}")
+        say("eval", f"python -m floodgan_tpu_torch.cli.evaluate --calculate_metrics --segmentation_model_path "
+                    f"({n_val} validation images, {S}^2, batch {BATCH}): {eval_wall:.2f} s with set-up; launches "
+                    f"{total}; CSV {json.dumps({k: float(v) for k, v in cells.items()})}")
+
+        # ---- the eval loop's stages at batch 8, device time ----
+        t0 = time.perf_counter()
+        batch = next(iter(model.val_loader.epoch_iter(0)))
+        x, y = batch["input"], batch["output"]
+        torch.cuda.synchronize()
+        loader_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seg = SegmentationModel(pretrained_model_path=seg_ckpt, skip_data=True, verbose=False)
+        torch.cuda.synchronize()
+        seg_setup_s = time.perf_counter() - t0
+        out01, y01 = denormalize(model.generate(x)[0]), denormalize(y)
+        stages = {
+            "generator": lambda: model.generate(x),
+            "image metrics": lambda: image_pair_metrics(out01, y01),
+            "U-Net (output)": lambda: seg.predict_mask(out01),
+            "U-Net (truth)": lambda: seg.predict_mask(y01),
+            "LPIPS": lambda: model.lpips(out01, y01),
+        }
+        stage_ms = {k: median_ms(fn, runs=EVAL_RUNS) for k, fn in stages.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        model.calculate_metrics(seg_model_path=seg_ckpt)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        read("calculate_metrics, again", {k: v * forwards for k, v in SERVE_LAUNCHES.items()})
+        eval_peak = torch.cuda.max_memory_allocated() / 2**30
+        batch_ms = sum(stage_ms.values())
+        unet_flops = flops_per_px * x.shape[0] * x.shape[1] * x.shape[2]
+        unet_ms = stage_ms["U-Net (output)"]
+        say("eval", f"eval loop at batch {x.shape[0]}, {S}^2, ms a batch (CUDA events, median of {EVAL_RUNS}): "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+                    + f"; sum {batch_ms:.3f} ms = {x.shape[0] / batch_ms * 1e3:.2f} images/s; calculate_metrics "
+                    f"again (seg .ckpt load, loader and loop): {loop_s:.3f} s = {n_val / loop_s:.2f} images/s; "
+                    f"peak {eval_peak:.2f} GiB; of its set-up, SegmentationModel from the .ckpt {seg_setup_s:.3f} s, "
+                    f"the first batch from the loader {loader_s:.3f} s; a U-Net forward is "
+                    f"{unet_flops / 1e12:.3f} TFLOP of convs, {unet_flops / unet_ms / 1e9:.1f} TFLOP/s ({smi})")
+        del seg, model, out01, y01, x, y
+
+        # ---- the card against the CPU, the same checkpoints ----
+        runs = {}
+        for dev in (CARD, "cpu"):
+            m = Model(load_pretrained_model=True, pretrained_model_path=gan_ckpt, training_model=False,
+                      dataset_subset="usa", dataset_dem="best", data_path=root, metadata_dir=meta,
+                      resize=EVAL_CMP_SIZE, batch_size=EVAL_CMP_BATCH, device=dev)
+            b = next(iter(m.val_loader.epoch_iter(0)))
+            runs[dev] = {"model": m, "out": m.generate(b["input"])[0].cpu(), "y": b["output"].cpu(),
+                         "seg": SegmentationModel(pretrained_model_path=seg_ckpt, skip_data=True, verbose=False,
+                                                  device=dev)}
+        gen_diff = float((runs[CARD]["out"] - runs["cpu"]["out"]).abs().max())
+        check(gen_diff <= TOL_EVAL_GEN, f"generator outputs: card and CPU differ by {gen_diff}")
+        out01, y01 = denormalize(runs["cpu"]["out"]), denormalize(runs["cpu"]["y"])  # the same images on both
+        res = {}
+        for dev, r in runs.items():
+            o, t = out01.to(dev), y01.to(dev)
+            res[dev] = {k: v.cpu() for k, v in image_pair_metrics(o, t).items()}
+            res[dev]["LPIPS"] = r["model"].lpips(o, t).cpu()
+            res[dev]["logits"] = torch.stack([r["seg"].predict_logits(o), r["seg"].predict_logits(t)]).cpu()
+        cpu, card = res["cpu"], res[CARD]
+        errs = {"PSNR": float(((card["PSNR"] - cpu["PSNR"]) / cpu["PSNR"]).abs().max())}
+        errs.update({k: float((card[k] - cpu[k]).abs().max()) for k in ("SSIM", "MS-SSIM", "LPIPS")})
+        logit_diff = float((card["logits"] - cpu["logits"]).abs().max())
+        logit_max = float(cpu["logits"].abs().max())
+        band = max(NEAR_THRESHOLD, logit_diff)
+        near = (cpu["logits"].abs() <= band).sum(dim=(0, 2, 3, 4))  # per image, output or truth side
+        counts = {dev: confusion_counts_per_image((r["logits"][0] > 0).float(), (r["logits"][1] > 0).float())
+                  for dev, r in res.items()}
+        count_l1 = (counts[CARD] - counts["cpu"]).abs().sum(dim=1)
+        say("eval", f"card against CPU at {EVAL_CMP_SIZE}^2 batch {EVAL_CMP_BATCH}, the same .ckpt files: generator "
+                    f"{gen_diff:.3g} (tol {TOL_EVAL_GEN:g}); on the CPU's output: PSNR rel {errs['PSNR']:.3g} (tol "
+                    f"{TOL_EVAL_PSNR:g}), SSIM {errs['SSIM']:.3g}, MS-SSIM {errs['MS-SSIM']:.3g}, LPIPS "
+                    f"{errs['LPIPS']:.3g} (tol {TOL_EVAL_METRIC:g}); U-Net logits {logit_diff:.3g} of max "
+                    f"{logit_max:.3g} (tol {TOL_EVAL_LOGITS:g} of max); confusion counts card {counts[CARD].tolist()} "
+                    f"cpu {counts['cpu'].tolist()}, L1 {count_l1.tolist()} against 2 x the "
+                    f"{near.tolist()} pixels within {band:.3g} of the threshold")
+        check(errs["PSNR"] <= TOL_EVAL_PSNR, f"PSNR: card and CPU differ by {errs['PSNR']} relative")
+        check(all(errs[k] <= TOL_EVAL_METRIC for k in ("SSIM", "MS-SSIM", "LPIPS")), f"metrics differ: {errs}")
+        check(logit_diff <= TOL_EVAL_LOGITS * logit_max, f"U-Net logits differ by {logit_diff} of {logit_max}")
+        check(bool((count_l1 <= 2 * near).all()), f"confusion counts differ by {count_l1.tolist()}")
+        del runs, res
+
+        # ---- MS-SSIM on the card against the float64 goldens (TF32 guard) ----
+        gx, cases = _ms_ssim_golden_cases()
+        golden = {}
+        for name, gy in cases.items():
+            golden[name] = float(ms_ssim(torch.from_numpy(gx[None]).to(CARD), torch.from_numpy(gy[None]).to(CARD))[0])
+        gerr = {k: abs(v - _MS_SSIM_GOLDENS[k]) for k, v in golden.items()}
+        say("eval", f"ms_ssim on the card, tests/test_metrics.py's 192^2 cases: {json.dumps(golden)}; against the "
+                    f"float64 goldens {json.dumps(gerr)} (tol {TOL_GOLDEN:g}, and <= 1)")
+        check(all(e <= TOL_GOLDEN for e in gerr.values()) and all(v <= 1.0 for v in golden.values()),
+              f"MS-SSIM goldens: {golden}")
+
+        # ---- predict with flood masks ----
+        out_dir = os.path.join(root, "predictions_masks")
+        zero()
+        t0 = time.perf_counter()
+        pngs = cli_predict.main(["--pretrained_model_path", gan_ckpt, "--inputs", *tests, "--output_dir", out_dir,
+                                 "--resize", str(S), "--segmentation_model_path", seg_ckpt])
+        predict_s = time.perf_counter() - t0
+        read("the predict CLI with masks (its warm-up forward and one batch)",
+             {k: v * 2 for k, v in SERVE_LAUNCHES.items()})
+        masks = [p for p in pngs if p.endswith("_floodmask.png")]
+        check(len(masks) == len(tests) and len(pngs) == 2 * len(tests), f"PNGs {pngs}")
+        flooded = []
+        for p in masks:
+            px = _read_png_rgba(p)
+            check(px.shape == (S, S, 4) and bool((px[..., 3] == 255).all())
+                  and set(np.unique(px[..., :3]).tolist()) <= {0, 255}
+                  and bool((px[..., 0] == px[..., 1]).all() and (px[..., 1] == px[..., 2]).all()),
+                  f"{p}: not a gray {{0, 1}} mask of {S}^2")
+            flooded.append(float((px[..., 0] == 255).mean()))
+        say("eval", f"python -m floodgan_tpu_torch.cli.predict --segmentation_model_path on {len(tests)} inputs: "
+                    f"{len(pngs)} PNGs in {predict_s:.2f} s, masks {S}^2 gray {{0, 1}}, flooded shares {flooded}")
+
+        # ---- SegmentationModel.calculate_metrics on the masks' validation split ----
+        zero()
+        segm = SegmentationModel(dataset_subset="usa", data_path=root, metadata_dir=meta,
+                                 pretrained_model_path=seg_ckpt, verbose=False)
+        t0 = time.perf_counter()
+        seg_metrics = segm.calculate_metrics()
+        seg_eval_s = time.perf_counter() - t0
+        read("SegmentationModel.calculate_metrics", none)
+        check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in seg_metrics.values()), f"seg metrics {seg_metrics}")
+        check(len(glob.glob(os.path.join(root, "metrics", "SegmentationModel_*.csv"))) == 1, "seg metric CSV")
+        say("eval", f"SegmentationModel.calculate_metrics on {dict(MASK_SPLITS)['validation']} {CLI_TILE}^2 "
+                    f"validation tiles: {seg_eval_s:.2f} s, launches {none}; "
+                    f"{json.dumps({k: round(v, 6) for k, v in seg_metrics.items()})}")
+        del segm
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("FLOODGAN_LPIPS_FALLBACK", None)
+        else:
+            os.environ["FLOODGAN_LPIPS_FALLBACK"] = saved_env
     torch.cuda.empty_cache()
     return total
 
@@ -1044,12 +1453,17 @@ def main() -> int:
     phase_card_vs_cpu(sd)
     train_counts, step_rate = phase_train(smi)
     head_counts = phase_head(smi)
-    cli_counts = phase_cli(smi, step_rate)
+    root = tempfile.mkdtemp(prefix="floodgan_cli_")
+    try:
+        cli_counts, gan_ckpt, tests = phase_cli(smi, step_rate, root)
+        eval_counts = phase_eval(smi, root, gan_ckpt, tests)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for k, row in rows.items():
-        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k] + cli_counts[k]
+        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k] + cli_counts[k] + eval_counts[k]
     check(all(row["launches"] > 0 for row in rows.values()),
           f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}, "
-          f"head {head_counts}, cli {cli_counts}")
+          f"head {head_counts}, cli {cli_counts}, eval {eval_counts}")
     phase_train_card_vs_cpu()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -17,14 +17,22 @@ Losses stay on the device within an epoch, with one transfer at its end.
 spent blocked in the loader's ``next()``, the samples, and the loader's
 stage seconds and post-transform cache hits.
 
+Evaluation (floodgan_tpu/api/model.py:522-761): ``calculate_metrics``
+scores a split per image (PSNR, SSIM, MS-SSIM, LPIPS, the generator's time
+per image) and over the split's pixels (the flood-mask metrics of a
+segmentation U-Net), and writes the metric CSV in pandas' layout;
+``plot_image`` renders one named image of the dataset.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-Queue 1 item: multi-device meshes (12), ``remat`` (1),
-``calculate_metrics`` (6), the cycle family (9) and Pix2Pix (8).
+Queue 1 item: multi-device meshes (12), ``remat`` (1), the cycle family
+(9) and Pix2Pix (8).
 """
 
 from __future__ import annotations
 
+import csv
 import importlib.util
+import os
 import signal
 import time
 from typing import Dict, List, Optional
@@ -44,10 +52,18 @@ from floodgan_tpu_torch.core.config import (
     model_is_cycle,
     prettify_model_name,
 )
-from floodgan_tpu_torch.core.device import resolve_device
+from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.data.pipeline import create_flood_dataset
+from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
+from floodgan_tpu_torch.eval.lpips import load_lpips
+from floodgan_tpu_torch.eval.metrics import MASK_METRICS, MS_SSIM_MIN_SIDE, MaskMetricsAccumulator
 from floodgan_tpu_torch.train.paired import PairedTrainer
 from floodgan_tpu_torch.utils.jax_params import load_paired_state, paired_state_to_jax
+from floodgan_tpu_torch.utils.png import imsave_gray, imsave_rgb
+from floodgan_tpu_torch.utils.tables import print_table, write_metric_csv
+
+# The metric CSV's columns (floodgan_tpu/api/model.py:614-619).
+METRIC_COLUMNS = ("PSNR", "SSIM", "MS-SSIM", "LPIPS", *MASK_METRICS, "Inference")
 
 LOSS_KEYS = (
     "losses_discriminator_real",
@@ -105,6 +121,7 @@ class Model:
         num_data_devices: int = 1,
         num_spatial_devices: int = 1,
         metadata_dir: Optional[str] = None,
+        lpips_weights: Optional[str] = None,
         compute_dtype: str = "float32",
         remat: bool = False,
         remat_policy: Optional[str] = None,
@@ -160,6 +177,10 @@ class Model:
         self.model_is_attention = model_is_attention(self.model)
         self.input_channels = TOPOGRAPHY_CHANNELS[self.topography]
         self.epoch_stats: List[dict] = []
+        self._lpips_weights = lpips_weights
+        self._lpips = None
+        self._lpips_loaded = False
+        self._ms_ssim_warned = False
 
         # -- data (transforms on the device; reference models/data.py:11-44) --
         self.train_loader, self.val_loader, self.test_loader = create_flood_dataset(
@@ -370,8 +391,66 @@ class Model:
         (output NHWC in [-1, 1], background mask (N, H, W))."""
         return self.trainer.generate(input_stack)
 
+    @property
+    def lpips(self):
+        """The LPIPS metric (``eval.lpips.load_lpips``), loaded at first
+        use; None when no weights are found (a NaN column)."""
+        if not self._lpips_loaded:
+            self._lpips = load_lpips(self._lpips_weights)
+            self._lpips_loaded = True
+        return self._lpips
+
+    # ------------------------------------------------------------- metrics
+
     def calculate_metrics(self, use_test_data: bool = False, seg_model_path: Optional[str] = None):
-        raise _not_ported("calculate_metrics", 6, "Eval slice")
+        """(reference models/model.py:363-422)  Image metrics per image, and
+        mask metrics over the pixel concatenation of the split through the
+        segmentation U-Net of ``seg_model_path``.  The generator is timed
+        per batch, up to a synchronise of the card, and the ``Inference``
+        column holds that time divided over the batch's images."""
+        from floodgan_tpu_torch.api.segmentation import SegmentationModel
+
+        seg = SegmentationModel(data_path=self.data_path, pretrained_model_path=seg_model_path, train=False,
+                                metadata_dir=self.metadata_dir, skip_data=True, device=self.device)
+        print("\nCalculating metrics...")
+        loader = self.test_loader if use_test_data else self.val_loader
+        per_image = {k: [] for k in ("PSNR", "SSIM", "MS-SSIM", "LPIPS", "Inference")}
+        masks = MaskMetricsAccumulator()
+        eval_batch_metrics = seg.trainer.eval_batch_metrics
+        for batch in loader.epoch_iter(epoch=0):
+            x, y = batch["input"], batch["output"]
+            n = x.shape[0]
+            start = time.time()
+            out, _ = self.generate(x)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            inference_time = time.time() - start
+            # The last MS-SSIM scale's 11-tap window must fit (eval/metrics.py):
+            # below MS_SSIM_MIN_SIDE the column is NaN, with one warning.
+            ms_ok = min(out.shape[1], out.shape[2]) >= MS_SSIM_MIN_SIDE
+            if not ms_ok and not self._ms_ssim_warned:
+                print(f"WARNING: images are {out.shape[1]}x{out.shape[2]} after resize/crop — MS-SSIM requires "
+                      f">={MS_SSIM_MIN_SIDE}px per side (5 dyadic scales x 11-tap kernel); the MS-SSIM column "
+                      "will be NaN for this run.")
+                self._ms_ssim_warned = True
+            imgm, counts = eval_batch_metrics(out, y, with_ms_ssim=ms_ok)
+            for k in ("PSNR", "SSIM") + (("MS-SSIM",) if ms_ok else ()):
+                per_image[k].extend(imgm[k].cpu().tolist())
+            if not ms_ok:
+                per_image["MS-SSIM"].extend([float("nan")] * n)
+            if self.lpips is not None:
+                per_image["LPIPS"].extend(self.lpips(denormalize(out), denormalize(y)).cpu().tolist())
+            else:
+                per_image["LPIPS"].extend([float("nan")] * n)
+            per_image["Inference"].extend([inference_time / n] * n)
+            masks.add_counts(counts)
+
+        results = {k: float(np.mean(v)) for k, v in per_image.items()}
+        results.update(masks.compute())
+        row = {k: results[k] for k in METRIC_COLUMNS}
+        print_table(row)
+        write_metric_csv(self.create_path("metric"), row)
+        return results
 
     # --------------------------------------------------------------- plots
 
@@ -405,6 +484,83 @@ class Model:
         print(f"\nSaving losses figure to {losses_path}")
         fig.savefig(losses_path, bbox_inches="tight")
         plt.close(fig)
+
+    def _load_named_image(self, image_name: str, crop_index: int):
+        """One named image pair of the dataset, transformed on the model's
+        device (reference models/model.py:481-495): its DEM from the first
+        row of ``dataset_split.csv`` that names it."""
+        from floodgan_tpu_torch.data import tiff
+
+        with open(os.path.join(self.metadata_dir or "metadata", "dataset_split.csv"), newline="") as f:
+            row = next((r for r in csv.DictReader(f) if r["image"] == image_name), None)
+        if row is None:
+            raise ValueError(f"image {image_name!r} is not in dataset_split.csv")
+        dem_string = row[f"{self.dataset_dem}_DEM"]
+        inp = np.asarray(tiff.imread(f"{self.data_path}/dataset_input/{image_name}_{dem_string}.tif"),
+                         np.float32)[None]
+        out = np.asarray(tiff.imread(f"{self.data_path}/dataset_output/{image_name}.tif"), np.float32)[None]
+        with full_f32():
+            x, y = apply_transformations_batch(
+                inp, out, np.zeros(1, bool), np.full(1, crop_index, np.int32),
+                topography=self.topography, resize=self.resize, crop=self.crop, device=self.device,
+            )
+        if self.crop:
+            image_name = f"{image_name}_{crop_index}"
+        return x, y, image_name
+
+    def plot_image(self, image_name, plot_single_image=None, plot_image_set=False, crop_index=0):
+        """(reference models/model.py:475-540)  ``plot_single_image`` writes
+        one PNG through ``utils/png.py``; ``plot_image_set`` draws the
+        panel set with matplotlib."""
+        x, y, image_name = self._load_named_image(image_name, crop_index)
+        out, attn_mask = self.generate(x)
+        generator_output = to_display_image(out)
+
+        if plot_single_image:
+            if plot_single_image == "input":
+                p = pathlib_.ensure_parent(f"{self.data_path}/images/{image_name}_input.png")
+                print(f"\nSaving input image of image '{image_name}' to {p}")
+                imsave_rgb(p, to_display_image(x))
+            elif plot_single_image == "ground truth":
+                p = pathlib_.ensure_parent(f"{self.data_path}/images/{image_name}_groundTruth.png")
+                print(f"\nSaving ground truth of image '{image_name}' to {p}")
+                imsave_rgb(p, to_display_image(y))
+            elif plot_single_image == "output":
+                p = self.create_path(save_type="image", info=image_name)
+                print(f"\nSaving generator output of image '{image_name}' to {p}")
+                imsave_rgb(p, generator_output)
+            elif plot_single_image == "attention mask" and self.model_is_attention:
+                p = self.create_path(save_type="image", info=f"{image_name}_attentionMask")
+                print(f"\nSaving attention mask of image '{image_name}' to {p}")
+                imsave_gray(p, attn_mask[0].cpu().numpy(), reverse=True)
+            else:
+                raise NotImplementedError(
+                    "Type of image must be one of 'input', 'ground truth', 'output', or 'attention mask'"
+                )
+
+        if plot_image_set:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            num_cols = 4 if self.model_is_attention else 3
+            fig, axes = plt.subplots(nrows=1, ncols=num_cols, figsize=(num_cols * 5, 5))
+            for ax in axes.ravel():
+                ax.set_axis_off()
+            axes[0].imshow(to_display_image(x), vmin=0, vmax=1)
+            axes[1].imshow(generator_output, vmin=0, vmax=1)
+            axes[num_cols - 1].imshow(to_display_image(y), vmin=0, vmax=1)
+            axes[0].set_title(f"Input ({image_name})")
+            axes[1].set_title("Generator Output")
+            axes[num_cols - 1].set_title("Ground Truth Output")
+            if self.model_is_attention:
+                axes[2].imshow(attn_mask[0].cpu().numpy(), cmap="gray_r", vmin=0, vmax=1)
+                axes[2].set_title("Attention Mask")
+            fig.tight_layout()
+            images_path = self.create_path(save_type="image", info=image_name)
+            print(f"Saving {image_name} image set to {images_path}")
+            fig.savefig(images_path, bbox_inches="tight")
+            plt.close(fig)
 
     def plot_sample_images(self, num_images: int, use_test_data: bool) -> None:
         """(reference models/model.py:542-596)"""

@@ -1,12 +1,14 @@
-"""Load reference (PyTorch research code) checkpoints: the paired half of
-floodgan_tpu/utils/migrate.py.
+"""Load reference (PyTorch research code) checkpoints: the paired and
+segmentation halves of floodgan_tpu/utils/migrate.py.
 
-The reference saves one torch pickle per interval (``.pth.tar``): the
-config, starting_epoch, the loss history, and the ``generator`` /
-``discriminator`` state dicts with their two Adam state dicts.  The port's
-modules register their parameters in the reference's order, so the
-tensors map by position, and the Adam entries by the same positions.
-``maybe_migrate`` converts such a file once into a ``.ckpt`` beside it.
+The reference saves one torch pickle per interval (``.pth.tar``): for a
+GAN, the config, starting_epoch, the loss history, and the ``generator`` /
+``discriminator`` state dicts with their two Adam state dicts; for the
+U-Net, its ``model`` state dict, current_epoch, num_epochs and the loss and
+accuracy histories.  The port's modules register their parameters in the
+reference's order, so the tensors map by position, and the Adam entries by
+the same positions.  ``maybe_migrate`` converts such a file once into a
+``.ckpt`` beside it.  Cycle-family files wait for ROADMAP.md Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from floodgan_tpu_torch.ckpt.checkpoint import save_checkpoint
 from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS, _check_model, model_is_cycle
 from floodgan_tpu_torch.models.registry import build_discriminator, build_generator
+from floodgan_tpu_torch.models.unet import UNet
 from floodgan_tpu_torch.utils.jax_params import jax_tree_from_state_dict
 
 _BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
@@ -49,6 +52,13 @@ def _by_position(module: torch.nn.Module, ref_sd: Dict[str, torch.Tensor], what:
     return out
 
 
+def _fresh_adam(module: torch.nn.Module) -> Dict:
+    """optax's ``{count, mu, nu}`` before the first step: count 0, zeros."""
+    zeros = {n: torch.zeros_like(p) for n, p in module.named_parameters()}
+    return {"count": np.asarray(0, np.int32), "mu": jax_tree_from_state_dict(module, zeros),
+            "nu": jax_tree_from_state_dict(module, zeros)}
+
+
 def _adam_tree(module: torch.nn.Module, opt_sd: Dict, what: str) -> Dict:
     """optax ``{count, mu, nu}`` from a torch Adam state dict over
     ``module``'s parameters (the reference's single param group)."""
@@ -58,9 +68,7 @@ def _adam_tree(module: torch.nn.Module, opt_sd: Dict, what: str) -> Dict:
     if len(entries) != len(names):
         raise ValueError(f"{what}: the optimizer holds {len(entries)} parameters, the module {len(names)}")
     if all(e is None for e in entries):
-        zeros = {n: torch.zeros_like(p) for n, p in module.named_parameters()}
-        return {"count": np.asarray(0, np.int32), "mu": jax_tree_from_state_dict(module, zeros),
-                "nu": jax_tree_from_state_dict(module, zeros)}
+        return _fresh_adam(module)
     if any(e is None for e in entries):
         missing = [n for n, e in zip(names, entries) if e is None]
         raise ValueError(f"{what}: optimizer state missing for {missing}")
@@ -101,19 +109,39 @@ def migrate_gan(in_path: str, out_path: str) -> str:
     return out_path
 
 
+def migrate_seg(in_path: str, out_path: str) -> str:
+    """Convert a reference segmentation ``.pth.tar`` (its ``model`` state
+    dict, ``unet_spec`` order) into a ``.ckpt`` with a fresh Adam state, as
+    floodgan_tpu/utils/migrate.py:199-216 does."""
+    saved = torch.load(in_path, map_location="cpu", weights_only=True)
+    if not isinstance(saved.get("model"), dict):
+        raise ValueError(f"{in_path} holds no segmentation U-Net state dict under 'model'")
+    unet = UNet()
+    state = {
+        "opt": _fresh_adam(unet),
+        "params": jax_tree_from_state_dict(unet, _by_position(unet, saved["model"], "segmentation U-Net")),
+    }
+    meta = {
+        "current_epoch": int(saved["current_epoch"]),
+        "num_epochs": int(saved["num_epochs"]),
+        "all_losses": [float(x) for x in saved["all_losses"]],
+        "all_accuracies": [float(x) for x in saved["all_accuracies"]],
+    }
+    save_checkpoint(out_path, meta, state)
+    print(f"migrated {in_path} -> {out_path} (segmentation, epoch {meta['current_epoch']})")
+    return out_path
+
+
 def maybe_migrate(path: str, kind: str = "gan") -> str:
-    """``path`` itself for a ``.ckpt``.  For a reference torch file, the
-    path of ``<path>.floodgan.ckpt``, converted on the first load and
-    reused while it is newer than the source.  (The JAX version also takes
-    resize and crop, which size the cycle family's image buffers.)"""
+    """``path`` itself for a ``.ckpt``.  For a reference torch file (``kind``
+    "gan" or "seg"), the path of ``<path>.floodgan.ckpt``, converted on the
+    first load and reused while it is newer than the source.  (The JAX
+    version also takes resize and crop, which size the cycle family's image
+    buffers.)"""
     if not is_torch_checkpoint(path):
         return path
-    if kind == "seg":
-        raise NotImplementedError(
-            "segmentation checkpoints wait for the eval slice (ROADMAP.md Queue 1, item 6)"
-        )
     out = path + ".floodgan.ckpt"
     if os.path.isfile(out) and os.path.getmtime(out) >= os.path.getmtime(path):
         return out
     print(f"Reference (PyTorch) checkpoint detected - migrating to {out}")
-    return migrate_gan(path, out)
+    return migrate_seg(path, out) if kind == "seg" else migrate_gan(path, out)

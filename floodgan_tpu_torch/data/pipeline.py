@@ -6,7 +6,8 @@ loader's device and run the transform there (flip, channel slice, bicubic
 antialiased resize, quadrant crop, [-1, 1]; ``data/transforms.py``), two
 batches ahead of the consumer.  Batches are
 ``{"input": (B,h,w,C), "output": (B,h,w,3), "names": [...]}``, f32 NHWC
-tensors on the loader's device.
+tensors on the loader's device.  Mask batches (``MaskDataset``) are
+``(B,H,W,3)`` images and ``(B,H,W,1)`` masks, flipped and nothing else.
 
 On the card each worker thread has its own CUDA stream.  The raw batch is
 decoded into pinned host memory, copied with ``non_blocking=True`` on
@@ -40,14 +41,19 @@ import os
 import threading
 import time
 import warnings
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.data import native, tiff
-from floodgan_tpu_torch.data.splits import FloodSample, determine_flood_dataset
+from floodgan_tpu_torch.data.splits import (
+    FloodSample,
+    MaskSample,
+    determine_flood_dataset,
+    determine_masks_dataset,
+)
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch
 
 
@@ -168,6 +174,40 @@ class FloodDataset:
         return arr
 
 
+class MaskDataset:
+    """Sample list and raw decode of the segmentation pairs (reference
+    models/data.py:179-201): a 3-channel image under masks_input/ and its
+    1-channel mask under masks_output/, the same file name."""
+
+    def __init__(self, samples: Sequence[MaskSample], path: str):
+        self.samples = list(samples)
+        self.path = path
+        self._cache = _LruBytesCache(_env_bytes("FLOODGAN_DECODE_CACHE_BYTES"))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def name(self, index: int) -> str:
+        return self.samples[index].file_name
+
+    def read_raw(self, index: int) -> Tuple[np.ndarray, np.ndarray, bool, int]:
+        """Decoded (image 3ch, mask 1ch) float32 HWC, flip flag, crop index 0."""
+        s = self.samples[index]
+        inp = self._read(f"{self.path}/masks_input/{s.file_name}", channels=3)
+        out = self._read(f"{self.path}/masks_output/{s.file_name}", channels=1)
+        return inp, out, s.version == "flipped", 0
+
+    def _read(self, file_path: str, channels: int) -> np.ndarray:
+        arr = self._cache.get(file_path)
+        if arr is None:
+            arr = np.asarray(tiff.imread(file_path), dtype=np.float32)
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+            arr = arr[:, :, :channels]
+            self._cache.put(file_path, arr)
+        return arr
+
+
 Batch = Dict[str, object]
 
 
@@ -187,7 +227,7 @@ class BatchLoader:
 
     PREFETCH = 2  # batches in flight, each on its own worker thread
 
-    def __init__(self, dataset: FloodDataset, batch_size: int = 1, device=None):
+    def __init__(self, dataset: Union[FloodDataset, MaskDataset], batch_size: int = 1, device=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = resolve_device(device, "BatchLoader")
@@ -249,6 +289,8 @@ class BatchLoader:
             self.stage_seconds[stage] += seconds
 
     def _produce(self, idx_batch) -> Batch:
+        if isinstance(self.dataset, MaskDataset):
+            return self._assemble_masks(idx_batch)
         cached = self._assemble_from_post_cache(idx_batch)
         with self._lock:
             self.post_cache_total += 1
@@ -353,6 +395,29 @@ class BatchLoader:
                 self._fill_post_cache(idx_batch, inp, out)
         return {"input": inp, "output": out, "names": names, "_ready": ready}
 
+    def _assemble_masks(self, idx_batch) -> Batch:
+        """A batch of mask pairs: flip only, no resize, crop or [-1, 1]
+        (reference models/data.py:191-196).  Under the bf16 wire the pairs
+        cross in bf16 and are upcast to f32 on arrival."""
+        ds = self.dataset
+        t0 = time.perf_counter()
+        raws = [ds.read_raw(int(i)) for i in idx_batch]
+        self._add("decode", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        wire = torch.bfloat16 if os.environ.get("FLOODGAN_WIRE_DTYPE") == "bfloat16" else torch.float32
+        host = [self._host_buffer((len(raws),) + raws[0][k].shape, wire) for k in (0, 1)]
+        for k, buf in enumerate(host):
+            buf.copy_(torch.from_numpy(np.stack([r[k] for r in raws])))
+        self._add("alloc", time.perf_counter() - t0)
+        names = [ds.name(int(i)) for i in idx_batch]
+        t0 = time.perf_counter()
+        stream = self._stream()
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            flip = torch.tensor([r[2] for r in raws], device=self.device)[:, None, None, None]
+            inp, out = (torch.where(flip, t.flip(2), t).float() for t in self._to_device(*host))
+            ready = self._ready(stream, t0)
+        return {"input": inp, "output": out, "names": names, "_ready": ready}
+
     def _fill_post_cache(self, idx_batch, inp: torch.Tensor, out: torch.Tensor) -> None:
         """One fetch of the transform's own outputs fills the cache (exact by
         construction), unless the whole iterated stripe cannot fit under the
@@ -410,4 +475,21 @@ def create_flood_dataset(
             batch_size=batch_size, device=device,
         )
         for split in ("train", "validation", "test")
+    )
+
+
+def create_masks_dataset(
+    dataset_subset: str,
+    path: str,
+    train_on_all: bool,
+    batch_size: int = 1,
+    metadata_dir: Optional[str] = None,
+    device=None,
+):
+    """Mask loaders; the train loader only, with ``train_on_all``
+    (reference models/data.py:148-177)."""
+    splits = determine_masks_dataset(dataset_subset, train_on_all, metadata_dir)
+    return tuple(
+        None if samples is None else BatchLoader(MaskDataset(samples, path), batch_size=batch_size, device=device)
+        for samples in splits
     )

@@ -1,14 +1,13 @@
-"""Dataset split resolution over the metadata CSV, without pandas.
+"""Dataset split resolution over the metadata CSVs, without pandas.
 
-The port of ``determine_flood_dataset`` and ``FloodSample`` in
-floodgan_tpu/data/splits.py, on the stdlib ``csv`` module, sample for
-sample: the same subsets (a country, a disaster, ``all``, and the special
-``harveyflorence`` / ``harveyonflorence`` / ``testing``), the same row
-order, and the same pinned shuffles.  pandas' ``df.sample(frac=1,
-random_state=47)`` and ``df.sample(n=50, random_state=47)`` take rows in
-the order of ``np.random.RandomState(47).permutation(len(df))`` (its first
-n), and so does this module.  The masks split waits for the segmentation
-slice.
+The port of floodgan_tpu/data/splits.py on the stdlib ``csv`` module,
+sample for sample: the flood subsets (a country, a disaster, ``all``, and
+the special ``harveyflorence`` / ``harveyonflorence`` / ``testing``) and
+the masks subsets (a country), the same row order, and the same pinned
+shuffles.  pandas' ``df.sample(frac=1, random_state=47)`` and
+``df.sample(n=50, random_state=47)`` take rows in the order of
+``np.random.RandomState(47).permutation(len(df))`` (its first n), and so
+does this module.
 """
 
 from __future__ import annotations
@@ -128,3 +127,27 @@ def determine_flood_dataset(
             for r in split_rows
         ]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSample:
+    file_name: str  # the same name under masks_input/ and masks_output/
+    version: str
+
+
+def determine_masks_dataset(subset: str, train_on_all: bool, metadata_dir: Optional[str] = None):
+    """(train, validation, test) mask samples of a country, in the CSV's
+    row order (the reference does not shuffle them); (all, None, None) with
+    ``train_on_all`` (reference models/data.py:203-218)."""
+    table = _read_rows(_metadata_csv("masks_metadata.csv", metadata_dir))
+    key = subset.lower()
+    if key not in _COUNTRIES:
+        raise NotImplementedError("Unrecognised dataset subset name")
+    rows = [r for r in table if r["country"] == key]
+
+    def to_samples(rs):
+        return [MaskSample(r["image"], r["version"]) for r in rs]
+
+    if train_on_all:
+        return to_samples(rows), None, None
+    return tuple(to_samples([r for r in rows if r["split"] == s]) for s in ("train", "validation", "test"))

@@ -2,13 +2,14 @@
 the port's modules, in both directions.
 
 A JAX parameter tree is what ``AttentionGenerator.init(...)["params"]``
-(or the PatchGAN's) returns, with numpy arrays (or anything ``np.asarray``
-takes) as leaves:
+(or the PatchGAN's, or the U-Net's) returns, with numpy arrays (or anything
+``np.asarray`` takes) as leaves:
   conv weights   HWIO                  <-> OIHW        (transpose 3, 2, 0, 1)
   convT weights  (kh, kw, C_in, C_out) <-> (C_in, C_out, kh, kw)
                                                       (transpose 2, 3, 0, 1;
                  no spatial flip: the JAX twin flips inside the op)
   biases         as they are
+  BN ``scale``   <-> ``weight`` (BN ``bias`` as it is)
 The trunk is stored stacked, ``trunk/conv{1,2}_{weight,bias}`` with a
 leading block axis; block i is ``trunk.blocks.i``.
 
@@ -30,45 +31,51 @@ import numpy as np
 import torch
 from torch import nn
 
+from floodgan_tpu_torch.models.layers import BatchNorm2d
 
-def _jax_node(tree: Mapping, module_name: str) -> Dict[str, np.ndarray]:
-    """The {weight, bias} arrays of one port conv module in the JAX tree."""
+
+def _jax_node(tree: Mapping, module_name: str, jax_leaves) -> Dict[str, np.ndarray]:
+    """The arrays ``jax_leaves`` of one port module in the JAX tree."""
     parts = module_name.split(".")
     if parts[0] == "trunk":  # trunk.blocks.<i>.conv<j>
         i, conv = int(parts[2]), parts[3]
-        stacked = tree["trunk"]
-        return {
-            "weight": np.asarray(stacked[f"{conv}_weight"])[i],
-            "bias": np.asarray(stacked[f"{conv}_bias"])[i],
-        }
+        return {leaf: np.asarray(tree["trunk"][f"{conv}_{leaf}"])[i] for leaf in jax_leaves}
     node = tree
     for p in parts:
         node = node[p]
-    return {"weight": np.asarray(node["weight"]), "bias": np.asarray(node["bias"])}
+    return {leaf: np.asarray(node[leaf]) for leaf in jax_leaves}
 
 
-def _convs(model: nn.Module):
-    """(module name, module, JAX -> torch weight permutation) of each conv,
-    in registration order."""
+def _modules(model: nn.Module):
+    """(module name, {torch leaf: (JAX leaf, JAX -> torch permutation or
+    None)}) of each parameterised module, in registration order: convs
+    (weight, and bias where the conv has one) and batch norms (the JAX
+    ``scale`` is torch's ``weight``)."""
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.ConvTranspose2d):
-            yield name, mod, (2, 3, 0, 1)
-        elif isinstance(mod, nn.Conv2d):
-            yield name, mod, (3, 2, 0, 1)
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            perm = (2, 3, 0, 1) if isinstance(mod, nn.ConvTranspose2d) else (3, 2, 0, 1)
+            leaves = {"weight": ("weight", perm)}
+            if mod.bias is not None:
+                leaves["bias"] = ("bias", None)
+            yield name, leaves
+        elif isinstance(mod, BatchNorm2d):
+            yield name, {"weight": ("scale", None), "bias": ("bias", None)}
 
 
 def state_dict_from_jax(model: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX params (a nested mapping of arrays) -> a ``state_dict`` for
-    ``model`` (the generator or the PatchGAN).  Raises if a shape disagrees
-    or a parameter of the model is missing from the tree."""
+    ``model`` (the generator, the PatchGAN or the U-Net).  Raises if a shape
+    disagrees or a parameter of the model is missing from the tree."""
     sd: Dict[str, torch.Tensor] = {}
-    for name, mod, perm in _convs(model):
+    params = dict(model.named_parameters())
+    for name, leaves in _modules(model):
         try:
-            node = _jax_node(tree, name)
+            node = _jax_node(tree, name, [j for j, _ in leaves.values()])
         except KeyError as e:
             raise KeyError(f"JAX params have no entry for {name!r}") from e
-        for leaf, arr in (("weight", np.transpose(node["weight"], perm)), ("bias", node["bias"])):
-            want = getattr(mod, leaf).shape
+        for leaf, (jax_leaf, perm) in leaves.items():
+            arr = node[jax_leaf] if perm is None else np.transpose(node[jax_leaf], perm)
+            want = params[f"{name}.{leaf}"].shape
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(
                     f"{name}.{leaf}: the JAX array is {tuple(arr.shape)} in torch layout, "
@@ -88,12 +95,12 @@ def jax_tree_from_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor]) -
     change them."""
     tree: dict = {}
     stacked: Dict[str, list] = {}
-    for name, _mod, perm in _convs(model):
-        leaves = {
-            "weight": np.ascontiguousarray(
-                np.transpose(sd[f"{name}.weight"].detach().cpu().numpy(), np.argsort(perm))),
-            "bias": sd[f"{name}.bias"].detach().cpu().numpy().copy(),
-        }
+    for name, torch_leaves in _modules(model):
+        leaves = {}
+        for leaf, (jax_leaf, perm) in torch_leaves.items():
+            arr = sd[f"{name}.{leaf}"].detach().cpu().numpy()
+            leaves[jax_leaf] = arr.copy() if perm is None else np.ascontiguousarray(
+                np.transpose(arr, np.argsort(perm)))
         parts = name.split(".")
         if parts[0] == "trunk":  # trunk.blocks.<i>.conv<j>, in block order
             for leaf, arr in leaves.items():
@@ -169,3 +176,19 @@ def load_paired_state(trainer, raw: Mapping) -> None:
     ):
         module.load_state_dict(state_dict_from_jax(module, raw[params_key]))
         adam_state_from_jax(module, opt, raw[opt_key])
+
+
+def seg_state_to_jax(trainer) -> dict:
+    """A ``train.seg.SegTrainer``'s state as the JAX ``SegState`` tree:
+    ``{params, opt: {count, mu, nu}}``."""
+    m = trainer.model
+    return {"params": jax_tree_from_state_dict(m, dict(m.named_parameters())),
+            "opt": adam_state_to_jax(m, trainer.opt)}
+
+
+@torch.no_grad()
+def load_seg_state(trainer, raw: Mapping) -> None:
+    """Load a JAX ``SegState`` tree into a ``SegTrainer``: the U-Net's
+    parameters and its Adam state."""
+    trainer.model.load_state_dict(state_dict_from_jax(trainer.model, raw["params"]))
+    adam_state_from_jax(trainer.model, trainer.opt, raw["opt"])

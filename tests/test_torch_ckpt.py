@@ -268,11 +268,13 @@ def test_reference_checkpoint_migrates_like_jax(jax_states, tmp_path):
 
 
 def test_migrate_raises_for_cycle_and_segmentation_files(tmp_path):
+    """Cycle-family files wait for their ROADMAP item; segmentation files
+    migrate (tests/test_torch_seg.py), and a GAN file read as one raises."""
     path = str(tmp_path / "cycle.pth.tar")
     torch.save({"model": "attentiongan", "topography": "dem"}, path)
     with pytest.raises(NotImplementedError, match="item 9"):
         migrate.maybe_migrate(path)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="no segmentation U-Net state dict"):
         migrate.maybe_migrate(path, kind="seg")
 
 

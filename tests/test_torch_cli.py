@@ -11,6 +11,7 @@
   x * 255); the two packages' float outputs agree within 1e-5, so the
   pixels are equal except where the two floats straddle a multiple of
   1/255, and there they differ by one level.
+- ``--segmentation_model_path`` reads its checkpoint before predicting.
 - Without ``--device`` both CLIs need the card.
 """
 
@@ -163,9 +164,14 @@ def test_png_writer_matches_matplotlib_imsave(tmp_path, rng):
 
 
 def test_predict_cli_segmentation_waits_for_the_eval_slice(trained, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """The eval slice has landed: ``--segmentation_model_path`` is read
+    (tests/test_torch_eval.py holds its masks against predict.py), and a
+    missing file raises before any PNG is written."""
+    with pytest.raises(FileNotFoundError):
         cli_predict.main(["--pretrained_model_path", trained["ckpts"][-1], "--inputs", "x.tif",
-                          "--output_dir", str(tmp_path), "--segmentation_model_path", "seg.ckpt"])
+                          "--output_dir", str(tmp_path), "--segmentation_model_path", str(tmp_path / "seg.ckpt"),
+                          "--device", "cpu"])
+    assert not glob.glob(str(tmp_path / "*.png"))
 
 
 def test_clis_without_device_need_the_card(trained, tmp_path, monkeypatch):

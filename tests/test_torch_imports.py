@@ -32,6 +32,8 @@ def test_scan_covers_the_port():
         "tools/microbench_head.py", "ckpt/_msgpack.py", "ckpt/checkpoint.py", "ckpt/migrate.py",
         "utils/jax_params.py", "utils/profiling.py", "utils/png.py", "data/tiff.py", "data/native.py",
         "data/splits.py", "data/pipeline.py", "api/paths.py", "api/model.py", "cli/train.py", "cli/predict.py",
+        "models/unet.py", "train/seg.py", "eval/metrics.py", "eval/lpips.py", "api/segmentation.py",
+        "cli/evaluate.py", "cli/segment.py", "utils/tables.py",
     )} | {"chip_smoke.py"} <= names
 
 
