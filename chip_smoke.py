@@ -6,9 +6,10 @@
 Drives the port's main paths at full width: serving and paired training of
 PairedAttention (topography "all", 9 input channels) at 512^2, the
 content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
-64->27 head conv) at batch 8 in bf16, the training and predict CLIs, and
-GAN evaluation with the segmentation U-Net.  It fails unless every phase
-passes:
+64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
+evaluation with the segmentation U-Net, the other three families (Pix2Pix
+and the cycle step of CycleGAN and AttentionGAN), and the comparison CLI.
+It fails unless every phase passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
 2. build    - compiles csrc/*.cu with nvcc for sm_90a (ops/_build.py).
@@ -80,12 +81,43 @@ passes:
               confusion counts away from the threshold); ms_ssim on the card
               against tests/test_metrics.py's float64 goldens (the TF32
               guard); python -m floodgan_tpu_torch.cli.predict
-              --segmentation_model_path (gray {0, 1} mask PNGs); and
+              --segmentation_model_path (gray {0, 1} mask PNGs);
               SegmentationModel.calculate_metrics on the masks' validation
-              split.
-11. train card-cpu - the same seeded trainer at 64^2, batch 2, f32 (TF32
-              off) on the card and on the CPU (plain versions): step-1 and
-              step-2 losses.
+              split; and python -m floodgan_tpu_torch.cli.segment without
+              --train (its metric CSV, written whether or not matplotlib is
+              there for the figures).
+11. families - Pix2Pix (PairedTrainer), AttentionGAN and CycleGAN
+              (CycleTrainer) at bench.py --mode train's defaults: 512^2,
+              batch 8, bf16, topography all.  One step each, the counts set
+              to 0 before and read after, launches exactly
+              FAMILY_STEP_LAUNCHES (Pix2Pix none; AttentionGAN K1 112, K2 112,
+              K3 4, K4 4, and 162/162/6/6 with the identity loss; CycleGAN K1
+              104, K2 104); five steps give finite losses and move every
+              network's weights, and a cycle buffer holds min(50, 8 x steps)
+              images; then the median step of 10, samples/s and peak memory.
+              The card against the CPU at 64^2 (cycle) and 256^2 (Pix2Pix,
+              its least size, dropout rate 0), batch 2, f32: step-1 and step-2
+              losses.  Then python -m floodgan_tpu_torch.cli.train for each
+              family on [cli]'s tiles (512^2, batch 8, bf16, 1 epoch, a
+              .ckpt); the AttentionGAN .ckpt resumed bit for bit against a
+              snapshot taken after its epoch (parameters, both Adams, both
+              bf16 buffers and their counts, the loss history); and
+              InferenceEngine.from_checkpoint on each .ckpt against the
+              trained Model's generate (within TOL_CKPT_PREDICT; Pix2Pix's
+              dropout on the seed-47 stream on both sides).
+12. compare - python -m floodgan_tpu_torch.cli.compare --compare models
+              --calculate_metrics on [cli]'s epoch-3 PairedAttention .ckpt
+              and [families]' three, with [eval]'s seg .ckpt, on [cli]'s 8
+              validation images at 512^2 (batch 1, LPIPS on the fallback
+              weights): both CSVs, the averaged rows PairedAttention,
+              Pix2Pix, AttentionGAN, CycleGAN with the 15 columns and finite
+              PSNR, SSIM, MS-SSIM, LPIPS, the grouped rows sorted; each image
+              launches K1 73 times and K3 twice, nothing else.  Prints the
+              wall time and each model's mean Inference.  Then --compare two
+              on the Pix2Pix and CycleGAN files.
+13. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
+              2, f32 (TF32 off) on the card and on the CPU (plain versions):
+              step-1 and step-2 losses.
 
 The line before the verdict is one JSON "kernels" line.  The last line is
 {"ok": true, "device": {...}}.  Without a card, or without the package
@@ -179,6 +211,27 @@ NEAR_THRESHOLD = 1e-4   # |logit| within which the card and the CPU may fall on
                         # opposite sides of sigmoid > 0.5 (at least; the band
                         # widens to the measured logit difference)
 TOL_GOLDEN = 2e-5
+# [families]: the three other families at bench.py --mode train's defaults
+# (512^2, batch 8, bf16, topography all).  One step of each launches, by the
+# structure of the step: Pix2Pix no hand-written kernel (batch norms, no
+# compose); a cycle step 4 generator forwards (6 with the identity loss),
+# each 25 IN sites for the attention generator and 23 for CycleGAN's, and 4
+# PatchGAN reads of 3 IN sites (2 in the G loss, 2 concatenated in the D
+# update), each forward and backward; the attention generator one compose
+# per forward, each forward and backward.
+NO_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0}
+FAMILY_STEP_LAUNCHES = {
+    "pix2pix": NO_LAUNCHES,
+    "attentiongan": {"in_act": 112, "in_bwd": 112, "compose": 4, "compose_bwd": 4, "copy": 0},
+    "attentiongan+identity": {"in_act": 162, "in_bwd": 162, "compose": 6, "compose_bwd": 6, "copy": 0},
+    "cyclegan": {"in_act": 104, "in_bwd": 104, "compose": 0, "compose_bwd": 0, "copy": 0},
+}
+FAMILY_TIMED = 10
+FAMILY_CMP = {"pix2pix": 256, "cyclegan": 64, "attentiongan": 64}  # card against CPU, batch 2, f32
+FAMILIES = {"pix2pix": "Pix2Pix", "cyclegan": "CycleGAN", "attentiongan": "AttentionGAN"}
+# [compare]: the generator forwards of one image under --compare models.
+COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0}
+COMPARE_MODELS = ("PairedAttention", "Pix2Pix", "AttentionGAN", "CycleGAN")
 # The metric CSV's columns in the JAX package's order
 # (floodgan_tpu/api/model.py:614-619).
 JAX_METRIC_COLUMNS = (
@@ -1169,9 +1222,11 @@ def _seg_snapshot(model) -> dict:
 
 def phase_eval(smi, root: str, gan_ckpt: str, tests: list) -> dict:
     """GAN evaluation and the segmentation U-Net end to end (module
-    docstring, phase 10).  Returns the launch counts of its runs."""
+    docstring, phase 10).  Returns the launch counts of its runs and the
+    seg ``.ckpt``."""
     import csv
     import glob
+    import importlib.util
     import os
     import re
 
@@ -1412,6 +1467,304 @@ def phase_eval(smi, root: str, gan_ckpt: str, tests: list) -> dict:
                     f"validation tiles: {seg_eval_s:.2f} s, launches {none}; "
                     f"{json.dumps({k: round(v, 6) for k, v in seg_metrics.items()})}")
         del segm
+
+        # ---- the segmentation CLI's evaluate mode: the CSV with or without matplotlib ----
+        for p in glob.glob(os.path.join(root, "metrics", "SegmentationModel_*.csv")):
+            os.remove(p)  # a CSV written in the same second would carry the same name
+        zero()
+        t0 = time.perf_counter()
+        cli_segment.main([*seg_flags, f"--pretrained_model_path={seg_ckpt}"])
+        seg_cli_s = time.perf_counter() - t0
+        read("the segmentation CLI's evaluate mode", none)
+        seg_csvs = glob.glob(os.path.join(root, "metrics", "SegmentationModel_*.csv"))
+        check(len(seg_csvs) == 1, f"seg metric CSVs after the CLI's evaluate mode: {seg_csvs}")
+        with open(seg_csvs[0], newline="") as f:
+            header, row = list(csv.reader(f))
+        check(header[1:] == list(JAX_METRIC_COLUMNS[4:-1]) and all(0.0 <= float(v) <= 1.0 for v in row[1:]),
+              f"the seg CLI's CSV: {header} {row}")
+        say("eval", f"python -m floodgan_tpu_torch.cli.segment (evaluate mode) on the epoch-{SEG_EPOCHS} .ckpt: "
+                    f"{seg_cli_s:.2f} s, the metric CSV written (matplotlib "
+                    f"{'present' if importlib.util.find_spec('matplotlib') else 'absent: the figures skipped'})")
+    finally:
+        if saved_env is None:
+            os.environ.pop("FLOODGAN_LPIPS_FALLBACK", None)
+        else:
+            os.environ["FLOODGAN_LPIPS_FALLBACK"] = saved_env
+    torch.cuda.empty_cache()
+    return total, seg_ckpt
+
+
+def _cycle_snapshot(model) -> dict:
+    """Host copies of everything a cycle resume must restore: the four
+    networks' parameters, both Adams' moments and steps, both buffers with
+    their counts, and the loss history."""
+    t = model.trainer
+    snap = {"all_losses": json.loads(json.dumps(model.all_losses)), "epoch": model.current_epoch}
+    for opt, nets in ((t.gen_opt, ("gen_ab", "gen_ba")), (t.disc_opt, ("disc_post", "disc_pre"))):
+        for net in nets:
+            for name, p in getattr(t, net).named_parameters():
+                snap[f"{net}.{name}"] = p.detach().cpu().clone()
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    snap[f"{net}.{name}:{k}"] = opt.state[p][k].detach().cpu().clone()
+    for buf in ("pre_buffer", "post_buffer"):
+        snap[buf] = getattr(t, buf).images.detach().cpu().clone()
+        snap[f"{buf}:count"] = torch.tensor(getattr(t, buf).count)
+    return snap
+
+
+def _check_cycle_resume(root: str, ckpt: str, snap: dict) -> None:
+    """A Model resumed from the AttentionGAN .ckpt holds, bit for bit, what
+    the snapshot took after the epoch that wrote it."""
+    from floodgan_tpu_torch.api.model import Model
+
+    t0 = time.perf_counter()
+    resumed = Model(load_pretrained_model=True, pretrained_model_path=ckpt, dataset_subset="usa",
+                    dataset_dem="best", data_path=root, metadata_dir=f"{root}/metadata", resize=S,
+                    batch_size=BATCH, compute_dtype="bfloat16")
+    resume_s = time.perf_counter() - t0
+    check(resumed.starting_epoch == 2 and resumed.all_losses == snap["all_losses"],
+          f"AttentionGAN resumed at epoch {resumed.starting_epoch}, losses {resumed.all_losses}")
+    now = _cycle_snapshot(resumed)
+    differ = [k for k in snap if k not in ("all_losses", "epoch") and not (
+        now[k].dtype == snap[k].dtype and now[k].shape == snap[k].shape and torch.equal(now[k], snap[k]))]
+    check(not differ and set(now) == set(snap), f"AttentionGAN resume differs from the snapshot in {differ[:5]}")
+    say("families", f"AttentionGAN resume from its .ckpt: Model set-up {resume_s:.2f} s; loss history and "
+                    f"{len(snap) - 2} tensors (4 networks' parameters, both Adams' exp_avg, exp_avg_sq and step, both "
+                    f"bf16 buffers and their counts {snap['pre_buffer:count'].item()}, "
+                    f"{snap['post_buffer:count'].item()}) bit for bit")
+
+
+def _family_trainer(model: str, device, size: int, dtype: str, **kw):
+    from floodgan_tpu_torch.train.cycle import CycleTrainer
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    if model == "pix2pix":
+        return PairedTrainer("pix2pix", 9, compute_dtype=dtype, device=device, seed=SEED, **kw)
+    return CycleTrainer(model, 9, (size, size), compute_dtype=dtype, device=device, seed=SEED, **kw)
+
+
+def _family_nets(trainer) -> tuple:
+    names = ("generator", "discriminator") if hasattr(trainer, "generator") else (
+        "gen_ab", "gen_ba", "disc_post", "disc_pre")
+    return tuple((n, getattr(trainer, n)) for n in names)
+
+
+def phase_families(smi, root: str, tests: list, paired_rate: float) -> tuple:
+    """Pix2Pix, CycleGAN and AttentionGAN at full width (module docstring,
+    phase 11).  Returns the launch counts of its runs and the three
+    families' ``.ckpt`` files."""
+    import glob
+    import os
+
+    from floodgan_tpu_torch.api import model as api_model
+    from floodgan_tpu_torch.cli import train as cli_train
+    from floodgan_tpu_torch.data import tiff
+    from floodgan_tpu_torch.data.transforms import denormalize
+    from floodgan_tpu_torch.serve import InferenceEngine
+
+    launches = _Launches()
+    zero, read, total = launches.zero, launches.read, launches.total
+    x, y = _train_inputs(np.random.default_rng(SEED + 7), BATCH, S)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    rates = {}
+
+    # ---- the train steps of each family, from seeded inits ----
+    for model in FAMILIES:
+        t0 = time.perf_counter()
+        trainer = _family_trainer(model, None, S, "bfloat16")
+        setup = time.perf_counter() - t0
+        nets = _family_nets(trainer)
+        start = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in nets}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        trainer.train_step(x, y, LR, epoch=1, step=0)
+        counts = read(f"one {model} step", FAMILY_STEP_LAUNCHES[model])
+        extra = ""
+        if model == "attentiongan":
+            trainer.add_identity_loss = True
+            zero()
+            m = trainer.train_step(x, y, LR, epoch=1, step=1)
+            counts_id = read("one attentiongan step with the identity loss", FAMILY_STEP_LAUNCHES["attentiongan+identity"])
+            check({"losses_identity_post", "losses_identity_pre"} <= set(m), f"identity losses {sorted(m)}")
+            trainer.add_identity_loss = False
+            extra = f"; with the identity loss {counts_id}"
+        steps = 2 if model == "attentiongan" else 1
+        while steps < 5:
+            metrics = trainer.train_step(x, y, LR, epoch=1, step=steps)
+            steps += 1
+        losses = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in losses.values()), f"{model}: non-finite losses after 5 steps: {losses}")
+        moved = {n: _changed(mod, start[n]) for n, mod in nets}
+        for n, (w_moved, w_all, _, _) in moved.items():
+            check(w_moved == w_all, f"{model} {n}: only {w_moved} of {w_all} weight tensors changed in 5 steps")
+        if model != "pix2pix":
+            for buf in ("pre_buffer", "post_buffer"):
+                count = getattr(trainer, buf).count
+                check(count == min(50, BATCH * steps), f"{model} {buf} count {count} after {steps} steps")
+        times = []
+        for i in range(FAMILY_TIMED):
+            t0 = time.perf_counter()
+            trainer.train_step(x, y, LR, epoch=2, step=i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_ms = statistics.median(times) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rates[model] = BATCH / (step_ms / 1e3)
+        say("families", f"{FAMILIES[model]} {S}^2 batch {BATCH} bf16, seed {SEED}: one step launched {counts}{extra}; "
+                        f"set-up {setup:.2f} s; after 5 steps losses {json.dumps(losses)}; weights moved: "
+                        + ", ".join(f"{n} {mv[0]}/{mv[1]}" for n, mv in moved.items()))
+        say("families", f"{FAMILIES[model]} step ms median {step_ms:.3f} over {FAMILY_TIMED} after 5 (min {min(times) * 1e3:.3f}, "
+                        f"max {max(times) * 1e3:.3f}), {rates[model]:.3f} samples/s against the PairedAttention "
+                        f"step's {paired_rate:.3f}, peak memory {peak:.3f} GiB ({smi})")
+        del trainer, nets, start
+        torch.cuda.empty_cache()
+
+    # ---- the card against the CPU, f32, TF32 off ----
+    for model in FAMILIES:
+        size = FAMILY_CMP[model]
+        xs, ys = _train_inputs(np.random.default_rng(SEED + 8), 2, size)
+        runs = {}
+        for dev in (CARD, "cpu"):
+            kw = {"dropout_rate": 0.0} if model == "pix2pix" else {}
+            trainer = _family_trainer(model, dev, size, "float32", **kw)
+            runs[dev] = [{k: float(v) for k, v in trainer.train_step(xs, ys, LR, epoch=1, step=i).items()}
+                         for i in range(2)]
+        rel = [max(abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu) for card, cpu in zip(runs[CARD], runs["cpu"])]
+        say("families", f"{FAMILIES[model]} card against CPU at {size}^2 batch 2 f32 (TF32 off"
+                        f"{', dropout rate 0' if model == 'pix2pix' else ''}): step-1 max rel diff {rel[0]:.3g} "
+                        f"(tol {TOL_TRAIN_STEP1:g}), step-2 {rel[1]:.3g} (tol {TOL_TRAIN_STEP2:g})")
+        check(rel[0] <= TOL_TRAIN_STEP1 and rel[1] <= TOL_TRAIN_STEP2,
+              f"{model}: card and CPU losses differ: {runs}")
+
+    # ---- each family through the training CLI, a resume and the engine ----
+    snaps, models = {}, {}
+
+    class Recorder(api_model.Model):
+        def save_results(self, epoch, losses, epoch_start_time):
+            super().save_results(epoch, losses, epoch_start_time)
+            models[self.model] = self
+            if self.model == "attentiongan":
+                snaps["attentiongan"] = _cycle_snapshot(self)
+
+    n_train = 2 * dict(CLI_SPLITS)["train"]
+    steps = -(-n_train // BATCH)
+    ckpts = {}
+    saved_model = api_model.Model
+    api_model.Model = Recorder
+    try:
+        for model, pretty in FAMILIES.items():
+            before = set(glob.glob(os.path.join(root, "models", f"{pretty}_*.ckpt")))
+            zero()
+            t0 = time.perf_counter()
+            cli_train.main([f"--model={pretty}", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
+                            f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
+                            f"--batch_size={BATCH}", "--compute_dtype=bfloat16", "--num_epochs=1",
+                            "--save_model_interval=1"])
+            wall = time.perf_counter() - t0
+            read(f"the training CLI's {steps} {model} steps",
+                 {k: v * steps for k, v in FAMILY_STEP_LAUNCHES[model].items()})
+            (ckpts[pretty],) = set(glob.glob(os.path.join(root, "models", f"{pretty}_*.ckpt"))) - before
+            losses = models[model].all_losses
+            check(all(len(v) == 1 and np.isfinite(v[0]) for v in losses.values()), f"{model} CLI losses {losses}")
+            say("families", f"python -m floodgan_tpu_torch.cli.train --model={pretty} ({CLI_TILE}^2 tiles resized to "
+                            f"{S}^2, batch {BATCH}, bf16, 1 epoch of {steps} steps): {wall:.2f} s with set-up, "
+                            f"{os.path.getsize(ckpts[pretty]) / 2**20:.1f} MiB .ckpt")
+    finally:
+        api_model.Model = saved_model
+
+    if "attentiongan" in FAMILIES:
+        _check_cycle_resume(root, ckpts["AttentionGAN"], snaps["attentiongan"])
+
+    stacks = np.stack([np.asarray(tiff.imread(f), np.float32) for f in tests])
+    diffs = {}
+    for model, pretty in FAMILIES.items():
+        engine = InferenceEngine.from_checkpoint(ckpts[pretty], batch_size=len(tests), image_size=S)
+        xin = engine.preprocess(stacks, resize=S)
+        zero()
+        got = engine.predict(xin)
+        read(f"one {model} engine forward", _serve_launches(model))
+        want = denormalize(models[model].generate(xin)[0])
+        torch.cuda.synchronize()
+        diffs[model] = float((got - want).abs().max())
+        check(tuple(got.shape) == (len(tests), S, S, 3) and bool(torch.isfinite(got).all()),
+              f"{model} engine output {tuple(got.shape)}")
+        check(diffs[model] <= TOL_CKPT_PREDICT, f"{model}: engine of the .ckpt against the trained model: {diffs[model]}")
+        del engine
+    say("families", f"InferenceEngine.from_checkpoint against the trained Model's generate ({len(tests)} test inputs, "
+                    f"Pix2Pix's dropout on the seed-47 stream on both sides): max_abs_diff "
+                    + ", ".join(f"{FAMILIES[m]} {d:.3g}" for m, d in diffs.items()) + f" (tol {TOL_CKPT_PREDICT:g})")
+    models.clear()
+    torch.cuda.empty_cache()
+    return total, ckpts
+
+
+def _serve_launches(model: str) -> dict:
+    """One generator forward of ``model``: 25 IN sites and a compose for
+    the attention generator, 23 IN sites for CycleGAN's, none for Pix2Pix."""
+    if model == "pix2pix":
+        return dict(NO_LAUNCHES)
+    if model == "cyclegan":
+        return {**NO_LAUNCHES, "in_act": 23}
+    return dict(SERVE_LAUNCHES)
+
+
+def phase_compare(smi, root: str, ckpts: dict, seg_ckpt: str) -> dict:
+    """The comparison CLI on one .ckpt of each family (module docstring,
+    phase 12).  Returns the launch counts of its runs."""
+    import csv
+    import glob
+    import os
+
+    from floodgan_tpu_torch.cli import compare as cli_compare
+
+    launches = _Launches()
+    zero, read, total = launches.zero, launches.read, launches.total
+    n_val = dict(CLI_SPLITS)["validation"]
+    flags = ["--dataset_subset=usa", "--dataset_dem=best", f"--data_path={root}", f"--metadata_dir={root}/metadata",
+             "--topography=all", f"--resize={S}", "--calculate_metrics", f"--segmentation_model_path={seg_ckpt}"]
+    saved_env = os.environ.get("FLOODGAN_LPIPS_FALLBACK")
+    os.environ["FLOODGAN_LPIPS_FALLBACK"] = "1"
+    try:
+        zero()
+        t0 = time.perf_counter()
+        cli_compare.main(["--compare=models", *flags] + [f"--{m.lower()}_path={ckpts[m]}" for m in COMPARE_MODELS])
+        wall = time.perf_counter() - t0
+        counts = read(f"--compare models on {n_val} images", {k: v * n_val for k, v in COMPARE_LAUNCHES_PER_IMAGE.items()})
+        averaged = glob.glob(os.path.join(root, "metrics", "models_comparison_allTopography_*.csv"))
+        grouped = glob.glob(os.path.join(root, "metrics", "models_comparison_grouped_*.csv"))
+        check(len(averaged) == 1 and len(grouped) == 1, f"compare CSVs {averaged} {grouped}")
+        with open(averaged[0], newline="") as f:
+            header, *rows = list(csv.reader(f))
+        columns = list(JAX_METRIC_COLUMNS[:4]) + ["Inference"] + list(JAX_METRIC_COLUMNS[4:-1])
+        check(header == ["Model"] + columns and [r[0] for r in rows] == list(COMPARE_MODELS),
+              f"averaged table {header} {[r[0] for r in rows]}")
+        table = {r[0]: dict(zip(columns, r[1:])) for r in rows}
+        check(all(np.isfinite(float(table[m][k])) for m in COMPARE_MODELS for k in columns[:4]),
+              f"image metrics {table}")
+        with open(grouped[0], newline="") as f:
+            g_header, *g_rows = list(csv.reader(f))
+        keys = [r[0] for r in g_rows]
+        check(g_header[0] == "Metric_Model" and keys == sorted(keys) and len(keys) == 14 * len(COMPARE_MODELS),
+              f"grouped table {g_header} {keys[:4]}")
+        say("compare", f"python -m floodgan_tpu_torch.cli.compare --compare models --calculate_metrics "
+                       f"({n_val} validation images, {S}^2, batch 1): {wall:.2f} s with set-up; launches "
+                       f"{counts}; mean Inference s per image "
+                       + ", ".join(f"{m} {table[m]['Inference']}" for m in COMPARE_MODELS)
+                       + f" (the first model's first 5 dropped); PSNR "
+                       + ", ".join(f"{m} {float(table[m]['PSNR']):.4f}" for m in COMPARE_MODELS) + f" ({smi})")
+
+        zero()
+        t0 = time.perf_counter()
+        cli_compare.main(["--compare=two", *flags, f"--model_1_path={ckpts['Pix2Pix']}",
+                          f"--model_2_path={ckpts['CycleGAN']}"])
+        wall2 = time.perf_counter() - t0
+        counts_two = read(f"--compare two on {n_val} images", {**NO_LAUNCHES, "in_act": 23 * n_val})
+        two = glob.glob(os.path.join(root, "metrics", "two_comparison_allTopography_*.csv"))
+        check(len(two) == 1, f"--compare two CSVs {two}")
+        with open(two[0], newline="") as f:
+            check([r[0] for r in list(csv.reader(f))[1:]] == ["Model 1", "Model 2"], "--compare two rows")
+        say("compare", f"--compare two (Pix2Pix, CycleGAN): {wall2:.2f} s with set-up; launches {counts_two}")
     finally:
         if saved_env is None:
             os.environ.pop("FLOODGAN_LPIPS_FALLBACK", None)
@@ -1456,14 +1809,16 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="floodgan_cli_")
     try:
         cli_counts, gan_ckpt, tests = phase_cli(smi, step_rate, root)
-        eval_counts = phase_eval(smi, root, gan_ckpt, tests)
+        eval_counts, seg_ckpt = phase_eval(smi, root, gan_ckpt, tests)
+        families_counts, family_ckpts = phase_families(smi, root, tests, step_rate)
+        compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
+            "eval": eval_counts, "families": families_counts, "compare": compare_counts}
     for k, row in rows.items():
-        row["launches"] = serve_counts[k] + train_counts[k] + head_counts[k] + cli_counts[k] + eval_counts[k]
-    check(all(row["launches"] > 0 for row in rows.values()),
-          f"a kernel of the main paths never ran: serving {serve_counts}, training {train_counts}, "
-          f"head {head_counts}, cli {cli_counts}, eval {eval_counts}")
+        row["launches"] = sum(c[k] for c in runs.values())
+    check(all(row["launches"] > 0 for row in rows.values()), f"a kernel of the main paths never ran: {runs}")
     phase_train_card_vs_cpu()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

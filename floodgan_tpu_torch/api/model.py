@@ -1,11 +1,18 @@
-"""The GAN train object of the port: ``Model``, for the paired family.
+"""The GAN train object of the port: ``Model``, for all four families.
 
-The port of floodgan_tpu/api/model.py:107-518 for PairedAttention, on the
-card (``device=None``) or wherever the caller asks.  What it keeps:
+The port of floodgan_tpu/api/model.py:107-518, on the card
+(``device=None``) or wherever the caller asks.  Pix2Pix and PairedAttention
+train with ``train.paired.PairedTrainer``, CycleGAN and AttentionGAN with
+``train.cycle.CycleTrainer``.  What it keeps:
 - self-describing checkpoints: resuming reads model, num_epochs,
   topography and the identity-loss flag from the file, and the state is
-  the JAX ``PairedState`` tree, so either package resumes the other's
-  ``.ckpt`` (and reference ``.pth.tar`` files migrate on load);
+  the JAX ``PairedState`` or ``CycleState`` tree, so either package resumes
+  the other's ``.ckpt`` (and reference ``.pth.tar`` files migrate on load);
+- the per-step draws (Pix2Pix's dropout masks, the replay buffers'
+  choices) of step ``s`` of epoch ``e`` depend on (e, s) alone, as the JAX
+  package's ``fold_in(epoch_key(e), s)``, so a resumed run draws what an
+  unbroken run draws; ``generate`` draws Pix2Pix's dropout from the fixed
+  seed-47 inference stream;
 - the per-epoch data order of the loader, the LambdaLR schedule applied
   per epoch, the loss schema and per-epoch means in ``all_losses``, the
   verbose print format, and the metadata-encoded artifact names;
@@ -24,8 +31,7 @@ segmentation U-Net), and writes the metric CSV in pandas' layout;
 ``plot_image`` renders one named image of the dataset.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-Queue 1 item: multi-device meshes (12), ``remat`` (1), the cycle family
-(9) and Pix2Pix (8).
+Queue 1 item: multi-device meshes (12) and ``remat`` (1).
 """
 
 from __future__ import annotations
@@ -57,20 +63,45 @@ from floodgan_tpu_torch.data.pipeline import create_flood_dataset
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.eval.lpips import load_lpips
 from floodgan_tpu_torch.eval.metrics import MASK_METRICS, MS_SSIM_MIN_SIDE, MaskMetricsAccumulator
+from floodgan_tpu_torch.train.cycle import CycleTrainer
 from floodgan_tpu_torch.train.paired import PairedTrainer
-from floodgan_tpu_torch.utils.jax_params import load_paired_state, paired_state_to_jax
+from floodgan_tpu_torch.utils.jax_params import (
+    cycle_state_to_jax,
+    load_cycle_state,
+    load_paired_state,
+    paired_state_to_jax,
+)
 from floodgan_tpu_torch.utils.png import imsave_gray, imsave_rgb
 from floodgan_tpu_torch.utils.tables import print_table, write_metric_csv
 
 # The metric CSV's columns (floodgan_tpu/api/model.py:614-619).
 METRIC_COLUMNS = ("PSNR", "SSIM", "MS-SSIM", "LPIPS", *MASK_METRICS, "Inference")
 
-LOSS_KEYS = (
+# The per-step loss keys of each family (floodgan_tpu/api/model.py:291-314).
+PAIRED_LOSS_KEYS = (
     "losses_discriminator_real",
     "losses_discriminator_synthetic",
     "losses_generator_synthetic",
     "l1_losses_generator_synthetic",
 )
+CYCLE_LOSS_KEYS = (
+    "losses_generator_post",
+    "losses_generator_pre",
+    "losses_pre_to_post_cycle",
+    "losses_post_to_pre_cycle",
+    "losses_discriminator_pre_real",
+    "losses_discriminator_post_real",
+    "losses_discriminator_pre_synthetic",
+    "losses_discriminator_post_synthetic",
+)
+IDENTITY_LOSS_KEYS = ("losses_identity_post", "losses_identity_pre")
+
+
+def loss_keys(model: str, add_identity_loss: bool = False) -> tuple:
+    """The keys of the losses one train step of ``model`` returns."""
+    if not model_is_cycle(model):
+        return PAIRED_LOSS_KEYS
+    return CYCLE_LOSS_KEYS + (IDENTITY_LOSS_KEYS if add_identity_loss else ())
 
 
 def _safe_print(msg: str) -> None:
@@ -134,7 +165,7 @@ class Model:
         if num_data_devices > 1 or num_spatial_devices > 1:
             raise _not_ported("multi-device training", 12, "Multi-GPU")
         if remat:  # remat_policy only matters with remat
-            raise _not_ported("--remat", 1, "Paired training slice, remat")
+            raise _not_ported("--remat", 1, "--remat")
         if save_images_interval and importlib.util.find_spec("matplotlib") is None:
             raise RuntimeError("save_images_interval > 0 plots sample images, which needs matplotlib")
         self.device = resolve_device(device, "Model")
@@ -142,7 +173,7 @@ class Model:
         # -- config, possibly from a self-describing checkpoint --
         saved_meta = saved_state = None
         if load_pretrained_model:
-            pretrained_model_path = maybe_migrate(pretrained_model_path, "gan")
+            pretrained_model_path = maybe_migrate(pretrained_model_path, "gan", resize=resize, crop=crop)
             saved_meta, saved_state = load_checkpoint(pretrained_model_path)
             self.model = saved_meta["model"]
             self.num_epochs = saved_meta["num_epochs"]
@@ -156,10 +187,6 @@ class Model:
                 self.topography = None
             self.add_identity_loss = add_identity_loss
         _check_model(self.model)
-        if model_is_cycle(self.model):
-            raise _not_ported(f"the {self.model} model", 9, "Cycle family")
-        if self.model == "pix2pix":
-            raise _not_ported("the pix2pix model", 8, "Pix2Pix family")
         self.verbose = verbose
         self.save_model_interval = save_model_interval
         self.save_images_interval = save_images_interval
@@ -174,7 +201,9 @@ class Model:
         self.batch_size = batch_size
         self.metadata_dir = metadata_dir
         self.train_cfg = train_cfg
+        self.model_is_cycle = model_is_cycle(self.model)
         self.model_is_attention = model_is_attention(self.model)
+        self.loss_keys = loss_keys(self.model, self.add_identity_loss)
         self.input_channels = TOPOGRAPHY_CHANNELS[self.topography]
         self.epoch_stats: List[dict] = []
         self._lpips_weights = lpips_weights
@@ -189,16 +218,23 @@ class Model:
             metadata_dir=self.metadata_dir, device=self.device,
         )
 
-        # -- trainer and state --
-        self.trainer = PairedTrainer(
-            self.model, self.input_channels, cfg=train_cfg, compute_dtype=compute_dtype,
-            device=self.device, seed=seed,
-        )
-        self._image_hw()  # the square-source guard
+        # -- trainer and state (floodgan_tpu/api/model.py:206-216) --
+        image_hw = self._image_hw()  # and the square-source guard
+        if self.model_is_cycle:
+            self.trainer = CycleTrainer(
+                self.model, self.input_channels, image_hw, cfg=train_cfg,
+                add_identity_loss=self.add_identity_loss, compute_dtype=compute_dtype,
+                device=self.device, seed=seed,
+            )
+        else:
+            self.trainer = PairedTrainer(
+                self.model, self.input_channels, cfg=train_cfg, compute_dtype=compute_dtype,
+                device=self.device, seed=seed,
+            )
         if load_pretrained_model:
             self.starting_epoch = saved_meta["starting_epoch"]
             self.all_losses = {k: list(v) for k, v in saved_meta["all_losses"].items()}
-            load_paired_state(self.trainer, saved_state)
+            (load_cycle_state if self.model_is_cycle else load_paired_state)(self.trainer, saved_state)
         else:
             self.starting_epoch = 1
             self.all_losses = self._initialise_loss_storage(overall=True)
@@ -242,16 +278,17 @@ class Model:
     def _initialise_loss_storage(self, overall: bool) -> Dict[str, List[float]]:
         """Loss-key schema (reference models/model.py:183-205)."""
         pre = "all_" if overall else ""
-        return {f"{pre}{k}": [] for k in LOSS_KEYS}
+        return {f"{pre}{k}": [] for k in self.loss_keys}
 
     def prettify_model_name(self, model_name: Optional[str] = None) -> str:
         return prettify_model_name(model_name or self.model)
 
     def create_path(self, save_type: str, info: str = "") -> str:
+        identity_tag = f"identity{self.add_identity_loss}" if self.model_is_cycle else ""
         return pathlib_.model_artifact_path(
             self.data_path, save_type, self.prettify_model_name(), info,
             self.current_epoch if self.training_model else self.current_epoch - 1,
-            self.topography, "", self.dataset_subset, self.dataset_dem, self.resize, self.crop,
+            self.topography, identity_tag, self.dataset_subset, self.dataset_dem, self.resize, self.crop,
         )
 
     def print_training_setup(self) -> None:
@@ -262,6 +299,8 @@ class Model:
         print(f"Starting from epoch {self.starting_epoch}")
         print(f"{self.topography.title() if self.topography else 'No'} "
               "topographical factors will be input to the model")
+        if self.model_is_cycle and self.add_identity_loss:
+            print("Using identity mapping loss")
         print(f"Dataset: {len(self.train_loader)} batches of {self.batch_size} from "
               f"'{self.dataset_subset}' with '{self.dataset_dem}' DEM")
         print(f"Data resized to {self.resize} pixels with {self.crop} crops, scaled to [-1, 1]")
@@ -316,13 +355,16 @@ class Model:
                 wait += time.perf_counter() - t0
                 if batch is None:
                     break
-                step_metrics.append(self.trainer.train_step(batch["input"], batch["output"], lr))
+                # Step s of epoch e draws from the (e, s) stream.
+                step_metrics.append(self.trainer.train_step(batch["input"], batch["output"], lr,
+                                                            epoch=epoch, step=len(step_metrics)))
                 samples += batch["input"].shape[0]
 
             losses = self._initialise_loss_storage(overall=False)
             if step_metrics:
-                host = torch.stack([torch.stack([m[k] for k in LOSS_KEYS]) for m in step_metrics]).cpu()
-                for j, k in enumerate(LOSS_KEYS):
+                keys = self.loss_keys
+                host = torch.stack([torch.stack([m[k] for k in keys]) for m in step_metrics]).cpu()
+                for j, k in enumerate(keys):
                     losses[k] = host[:, j].tolist()
             loader = self.train_loader
             self.epoch_stats.append({
@@ -332,7 +374,11 @@ class Model:
             })
             self.save_results(epoch=epoch, losses=losses, epoch_start_time=epoch_start_time)
 
+    # The training entry points (floodgan_tpu/api/model.py:432-436).
     def train_paired(self) -> None:
+        self._train_loop()
+
+    def train_cycle(self) -> None:
         self._train_loop()
 
     # ------------------------------------------------------------- results
@@ -340,13 +386,32 @@ class Model:
     def print_losses(self) -> None:
         """(reference models/model.py:296-319)"""
         L = self.all_losses
+        if not self.model_is_cycle:
+            print(
+                "| "
+                f"Discriminator real loss = {L['all_losses_discriminator_real'][-1]:.2f} | "
+                f"Discriminator synthetic loss = {L['all_losses_discriminator_synthetic'][-1]:.2f} | "
+                f"Generator synthetic loss = {L['all_losses_generator_synthetic'][-1]:.2f} | "
+                f"L1 generator loss = {L['all_l1_losses_generator_synthetic'][-1]:.2f}"
+            )
+            return
         print(
             "| "
-            f"Discriminator real loss = {L['all_losses_discriminator_real'][-1]:.2f} | "
-            f"Discriminator synthetic loss = {L['all_losses_discriminator_synthetic'][-1]:.2f} | "
-            f"Generator synthetic loss = {L['all_losses_generator_synthetic'][-1]:.2f} | "
-            f"L1 generator loss = {L['all_l1_losses_generator_synthetic'][-1]:.2f}"
+            f"Generator post image loss = {L['all_losses_generator_post'][-1]:.2f} | "
+            f"Generator pre image loss = {L['all_losses_generator_pre'][-1]:.2f} | "
+            f"Pre to post cycle loss = {L['all_losses_pre_to_post_cycle'][-1]:.2f} | "
+            f"Post to pre cycle loss = {L['all_losses_post_to_pre_cycle'][-1]:.2f} | "
+            f"Discriminator pre real image loss = {L['all_losses_discriminator_pre_real'][-1]:.2f} | "
+            f"Discriminator post real image loss = {L['all_losses_discriminator_post_real'][-1]:.2f} | "
+            f"Discriminator pre synthetic image loss = {L['all_losses_discriminator_pre_synthetic'][-1]:.2f} | "
+            f"Discriminator post synthetic image loss = {L['all_losses_discriminator_post_synthetic'][-1]:.2f}",
+            end="" if self.add_identity_loss else "\n",
         )
+        if self.add_identity_loss:
+            print(
+                f" | Identity pre image loss = {L['all_losses_identity_pre'][-1]:.2f} | "
+                f"Identity post image loss = {L['all_losses_identity_post'][-1]:.2f}"
+            )
 
     def save_results(self, epoch: int, losses, epoch_start_time: float) -> None:
         """(reference models/model.py:321-361)"""
@@ -372,7 +437,7 @@ class Model:
         }
         model_path = self.create_path(save_type="model")
         _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
-        state = paired_state_to_jax(self.trainer)  # host copies, taken now
+        state = (cycle_state_to_jax if self.model_is_cycle else paired_state_to_jax)(self.trainer)  # host copies
         if self._async_ckpt is not None:
             self._async_ckpt.save(model_path, meta, state)
         else:
@@ -386,9 +451,13 @@ class Model:
 
     # ----------------------------------------------------------- inference
 
-    def generate(self, input_stack):
+    def generate(self, input_stack, direction: str = "ab"):
         """The generator's inference forward with the f32 parameters:
-        (output NHWC in [-1, 1], background mask (N, H, W))."""
+        (output NHWC in [-1, 1], background mask (N, H, W) or None).  A cycle
+        model runs G_ab, or G_ba for ``direction="ba"``; Pix2Pix draws its
+        dropout from the seed-47 inference stream."""
+        if self.model_is_cycle:
+            return self.trainer.generate(input_stack, direction)
         return self.trainer.generate(input_stack)
 
     @property
@@ -460,13 +529,29 @@ class Model:
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
-        plot_parameters = {
-            "all_losses_discriminator_real": {"colour": "#5F2959", "label": "Discriminator (real)", "plot": 0},
-            "all_losses_discriminator_synthetic": {"colour": "#9F799B", "label": "Discriminator (synthetic)", "plot": 0},
-            "all_losses_generator_synthetic": {"colour": "#7BA4A9", "label": "Generator (synthetic)", "plot": 0},
-            "all_l1_losses_generator_synthetic": {"colour": "black", "label": "L1 loss", "plot": 1},
-        }
-        fig, axes = plt.subplots(nrows=2, ncols=1, figsize=(10, 14))
+        if self.model_is_cycle:
+            plot_parameters = {
+                "all_losses_generator_post": {"colour": "#7BA4A9", "label": "Generator (post)", "linestyle": (0, (3, 1)), "plot": 0},
+                "all_losses_generator_pre": {"colour": "#7BA4A9", "label": "Generator (pre)", "linestyle": "solid", "plot": 0},
+                "all_losses_pre_to_post_cycle": {"colour": "#7BA4A9", "label": "Pre to post cycle loss", "linestyle": "solid", "plot": 1},
+                "all_losses_post_to_pre_cycle": {"colour": "#9F799B", "label": "Post to pre cycle loss", "linestyle": "solid", "plot": 1},
+                "all_losses_discriminator_pre_real": {"colour": "#5F2959", "label": "Discriminator (pre, real)", "linestyle": "solid", "plot": 0},
+                "all_losses_discriminator_post_real": {"colour": "#5F2959", "label": "Discriminator (post, real)", "linestyle": (0, (3, 1)), "plot": 0},
+                "all_losses_discriminator_pre_synthetic": {"colour": "#9F799B", "label": "Discriminator (pre, synthetic)", "linestyle": "solid", "plot": 0},
+                "all_losses_discriminator_post_synthetic": {"colour": "#9F799B", "label": "Discriminator (post, synthetic)", "linestyle": (0, (3, 1)), "plot": 0},
+            }
+            if self.add_identity_loss:
+                plot_parameters["all_losses_identity_post"] = {"colour": "black", "label": "Identity (post)", "linestyle": (0, (3, 1)), "plot": 2}
+                plot_parameters["all_losses_identity_pre"] = {"colour": "black", "label": "Identity (pre)", "linestyle": "solid", "plot": 2}
+        else:
+            plot_parameters = {
+                "all_losses_discriminator_real": {"colour": "#5F2959", "label": "Discriminator (real)", "linestyle": "solid", "plot": 0},
+                "all_losses_discriminator_synthetic": {"colour": "#9F799B", "label": "Discriminator (synthetic)", "linestyle": "solid", "plot": 0},
+                "all_losses_generator_synthetic": {"colour": "#7BA4A9", "label": "Generator (synthetic)", "linestyle": "solid", "plot": 0},
+                "all_l1_losses_generator_synthetic": {"colour": "black", "label": "L1 loss", "linestyle": "solid", "plot": 1},
+            }
+        num_plots = 3 if self.add_identity_loss else 2
+        fig, axes = plt.subplots(nrows=num_plots, ncols=1, figsize=(10, num_plots * 7))
         for ax in axes.ravel():
             ax.tick_params(axis="both", which="major", labelsize=14)
             ax.set_xlabel("Epoch", fontsize=14)
@@ -474,11 +559,17 @@ class Model:
             ax.grid(alpha=0.4)
         for loss, values in self.all_losses.items():
             p = plot_parameters[loss]
-            axes[p["plot"]].plot(range(1, len(values) + 1), values, c=p["colour"], linestyle="solid",
+            axes[p["plot"]].plot(range(1, len(values) + 1), values, c=p["colour"], linestyle=p["linestyle"],
                                  label=p["label"], linewidth=2)
-        axes[0].set_title(f"{self.prettify_model_name()} Discriminator and Generator Losses", fontsize=15)
-        axes[1].set_title(f"{self.prettify_model_name()} L1 Losses", fontsize=15)
+        name = self.prettify_model_name()
+        axes[0].set_title(f"{name} Discriminator and Generator Losses", fontsize=15)
+        axes[1].set_title(f"{name} {'Cycle Losses' if self.model_is_cycle else 'L1 Losses'}", fontsize=15)
         axes[0].legend(fontsize=14)
+        if self.model_is_cycle:
+            axes[1].legend(fontsize=14)
+        if self.add_identity_loss:
+            axes[2].set_title(f"{name} Identity Losses", fontsize=15)
+            axes[2].legend(fontsize=14)
         fig.tight_layout()
         losses_path = self.create_path(save_type="figure", info="losses")
         print(f"\nSaving losses figure to {losses_path}")
@@ -563,43 +654,54 @@ class Model:
             plt.close(fig)
 
     def plot_sample_images(self, num_images: int, use_test_data: bool) -> None:
-        """(reference models/model.py:542-596)"""
+        """(reference models/model.py:542-596)  A cycle model also runs its
+        post-to-pre generator on the post image with the input's
+        conditions."""
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
+        generators = ["pre-to-post"] + (["post-to-pre"] if self.model_is_cycle else [])
         splits = [("training", self.train_loader), ("validation", self.val_loader)]
         if use_test_data:
             splits.append(("test", self.test_loader))
         num_cols = 4 if self.model_is_attention else 3
-        for split, loader in splits:
-            fig, axes = plt.subplots(nrows=num_images, ncols=num_cols,
-                                     figsize=(num_cols * 5, num_images * 5))
-            axes = np.atleast_2d(axes)
-            for ax in axes.ravel():
-                ax.set_axis_off()
-            plotted = 0
-            for batch in loader.epoch_iter(epoch=self.seed):
-                for b in range(batch["input"].shape[0]):
-                    x, y = batch["input"][b:b + 1], batch["output"][b:b + 1]
-                    out, mask = self.generate(x)
-                    i = plotted
-                    axes[i, 0].imshow(to_display_image(x), vmin=0, vmax=1)
-                    axes[i, 1].imshow(to_display_image(out), vmin=0, vmax=1)
-                    axes[i, num_cols - 1].imshow(to_display_image(y), vmin=0, vmax=1)
-                    axes[i, 0].set_title(f"Input ({batch['names'][b]})")
-                    axes[i, 1].set_title("Generator Output")
-                    axes[i, num_cols - 1].set_title("Ground Truth Output")
-                    if self.model_is_attention:
-                        axes[i, 2].imshow(mask[0].cpu().numpy(), cmap="gray_r")
-                        axes[i, 2].set_title("Attention Mask")
-                    plotted += 1
+        for generator_label in generators:
+            for split, loader in splits:
+                fig, axes = plt.subplots(nrows=num_images, ncols=num_cols,
+                                         figsize=(num_cols * 5, num_images * 5))
+                axes = np.atleast_2d(axes)
+                for ax in axes.ravel():
+                    ax.set_axis_off()
+                plotted = 0
+                for batch in loader.epoch_iter(epoch=self.seed):
+                    for b in range(batch["input"].shape[0]):
+                        x, y = batch["input"][b:b + 1], batch["output"][b:b + 1]
+                        if generator_label == "post-to-pre":
+                            shown_in, target = torch.cat([y, x[..., 3:]], dim=-1), x[..., :3]
+                            out, mask = self.generate(shown_in, direction="ba")
+                        else:
+                            shown_in, target = x, y
+                            out, mask = self.generate(x)
+                        i = plotted
+                        axes[i, 0].imshow(to_display_image(shown_in), vmin=0, vmax=1)
+                        axes[i, 1].imshow(to_display_image(out), vmin=0, vmax=1)
+                        axes[i, num_cols - 1].imshow(to_display_image(target), vmin=0, vmax=1)
+                        axes[i, 0].set_title(f"Input ({batch['names'][b]})")
+                        axes[i, 1].set_title("Generator Output")
+                        axes[i, num_cols - 1].set_title("Ground Truth Output")
+                        if self.model_is_attention:
+                            axes[i, 2].imshow(mask[0].cpu().numpy(), cmap="gray_r")
+                            axes[i, 2].set_title("Attention Mask")
+                        plotted += 1
+                        if plotted >= num_images:
+                            break
                     if plotted >= num_images:
                         break
-                if plotted >= num_images:
-                    break
-            fig.tight_layout()
-            images_path = self.create_path(save_type="image", info=split)
-            print(f"Saving {split} sample images to {images_path}")
-            fig.savefig(images_path, bbox_inches="tight")
-            plt.close(fig)
+                fig.tight_layout()
+                several = len(generators) > 1
+                suffix = f"_{generator_label}" if several else ""
+                images_path = self.create_path(save_type="image", info=f"{split}{suffix}")
+                print(f"Saving {split} {generator_label + ' ' if several else ''}sample images to {images_path}")
+                fig.savefig(images_path, bbox_inches="tight")
+                plt.close(fig)

@@ -12,11 +12,15 @@ history.  The ``state`` bin is itself msgpack, written as flax's
 - a numpy array is ext type 1, whose payload is the msgpack of
   ``(shape, dtype name, C-order bytes)``;
 - a numpy scalar is ext type 3 with the same payload; it reads back as a
-  numpy scalar.
-
-flax splits an array over 2**30 bytes into a ``__msgpack_chunked_array__``
-map, and names bf16 arrays ``bfloat16``.  No state of this model has
-either, so both raise here rather than being misread.
+  numpy scalar;
+- a bf16 array (a cycle trainer's replay buffers under bf16) has the dtype
+  name ``bfloat16``.  numpy has no bf16, so it reads back as a
+  ``BF16Array``, the raw 16-bit patterns, and a bf16 tensor or a
+  ``BF16Array`` writes as one;
+- an array over ``MAX_CHUNK_SIZE`` (2**30) bytes is written as flax
+  writes it, a ``__msgpack_chunked_array__`` map of its shape and of
+  1-D chunks of at most that many bytes, and read back whole (a 50-slot
+  f32 buffer at 1024^2 x 9 channels is 1.89 GB).
 
 No ``msgpack`` or ``flax`` is needed: the codec is ``ckpt/_msgpack.py``.
 """
@@ -30,49 +34,77 @@ import os
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from floodgan_tpu_torch.ckpt import _msgpack
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
 CHUNKED_KEY = "__msgpack_chunked_array__"
-MAX_ARRAY_BYTES = 2 ** 30
+MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE, read at each write
 
 
-def _array_payload(arr: np.ndarray) -> list:
+class BF16Array:
+    """A bfloat16 array held as its raw 16-bit patterns (``bits``, uint16),
+    since numpy has no bf16 type."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = np.asarray(bits).view(np.uint16)
+
+    @classmethod
+    def from_tensor(cls, t) -> "BF16Array":
+        return cls(t.detach().contiguous().view(torch.int16).cpu().numpy().view(np.uint16).copy())
+
+    @property
+    def shape(self) -> tuple:
+        return self.bits.shape
+
+    def to_tensor(self) -> torch.Tensor:
+        return torch.from_numpy(self.bits.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def _as_array(x):
+    """A numpy array, a ``BF16Array`` or None (not an array) for a leaf."""
+    if isinstance(x, (np.ndarray, BF16Array)):
+        return x
+    if torch.is_tensor(x):
+        return BF16Array.from_tensor(x) if x.dtype == torch.bfloat16 else x.detach().cpu().numpy()
+    return None
+
+
+def _array_payload(arr) -> list:
     """The chunks of flax's ``_ndarray_to_bytes``: msgpack of (shape,
     dtype name, bytes), with the data as a view, not a copy."""
+    name = "bfloat16" if isinstance(arr, BF16Array) else None
+    if name:
+        arr = arr.bits
     if arr.dtype.hasobject or arr.dtype.names is not None:
         raise ValueError(f"cannot checkpoint an array of dtype {arr.dtype}")
-    if arr.nbytes > MAX_ARRAY_BYTES:
-        raise ValueError(
-            f"an array of {arr.nbytes} bytes would be chunked by flax "
-            f"({CHUNKED_KEY}); this writer does not chunk"
-        )
     arr = np.require(arr, requirements="C")  # ascontiguousarray would make a 0-d array 1-d
     if arr.dtype.byteorder == ">":
         arr = arr.astype(arr.dtype.newbyteorder("<"))
     chunks: list = []
     _msgpack.pack_into(
-        [list(arr.shape), arr.dtype.name, memoryview(arr.reshape(-1)).cast("B")], chunks
+        [list(arr.shape), name or arr.dtype.name, memoryview(arr.reshape(-1)).cast("B")], chunks
     )
     return chunks
 
 
 def _ext_default(x):
-    if isinstance(x, np.ndarray):
-        return _msgpack.ExtType(EXT_NDARRAY, _array_payload(x))
     if isinstance(x, np.generic):
         return _msgpack.ExtType(EXT_NPSCALAR, _array_payload(np.asarray(x)))
-    if hasattr(x, "detach") and hasattr(x, "numpy"):  # a torch tensor
-        return _msgpack.ExtType(EXT_NDARRAY, _array_payload(x.detach().cpu().numpy()))
-    raise TypeError(f"cannot checkpoint a {type(x).__name__}")
+    arr = _as_array(x)
+    if arr is None:
+        raise TypeError(f"cannot checkpoint a {type(x).__name__}")
+    return _msgpack.ExtType(EXT_NDARRAY, _array_payload(arr))
 
 
-def _array_from_payload(data: memoryview) -> np.ndarray:
+def _array_from_payload(data: memoryview):
     shape, dtype_name, buf = _msgpack.unpackb(data)
     if dtype_name == "bfloat16":
-        raise ValueError("bfloat16 arrays in a checkpoint are not supported by this reader")
+        return BF16Array(np.frombuffer(buf, dtype=np.uint16).reshape(shape))
     return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
 
 
@@ -84,17 +116,45 @@ def _ext_hook(code: int, data: memoryview):
     raise ValueError(f"msgpack ext type {code} is not a checkpoint type")
 
 
-def _check_unchunked(tree: Any, path: str = "state") -> None:
+def _chunked(arr) -> Dict[str, Any]:
+    """flax's ``_chunk``: the array's shape and its flat data in 1-D
+    chunks of at most ``MAX_CHUNK_SIZE`` bytes, each map keyed "0", "1", ..."""
+    bits = arr.bits if isinstance(arr, BF16Array) else arr
+    size = max(1, int(MAX_CHUNK_SIZE / bits.dtype.itemsize))
+    flat = np.require(bits, requirements="C").reshape(-1)
+    parts = [flat[i:i + size] for i in range(0, flat.size, size)]
+    if isinstance(arr, BF16Array):
+        parts = [BF16Array(p) for p in parts]
+    return {CHUNKED_KEY: True, "shape": {str(i): int(d) for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): p for i, p in enumerate(parts)}}
+
+
+def _unchunked(d: Dict[str, Any]):
+    shape = tuple(d["shape"][str(i)] for i in range(len(d["shape"])))
+    parts = [d["chunks"][str(i)] for i in range(len(d["chunks"]))]
+    if parts and isinstance(parts[0], BF16Array):
+        return BF16Array(np.concatenate([p.bits for p in parts]).reshape(shape))
+    return np.concatenate(parts).reshape(shape)
+
+
+def _restore_chunks(tree: Any) -> Any:
     if isinstance(tree, dict):
         if CHUNKED_KEY in tree:
-            raise ValueError(f"{path} is a flax chunked array (over 2**30 bytes); not supported")
-        for k, v in tree.items():
-            _check_unchunked(v, f"{path}/{k}")
+            return _unchunked(tree)
+        return {k: _restore_chunks(v) for k, v in tree.items()}
+    return tree
 
 
 def _sorted(tree: Any) -> Any:
+    """The tree with every map's keys sorted and every array leaf over
+    ``MAX_CHUNK_SIZE`` bytes chunked, as flax's ``msgpack_serialize``
+    leaves it."""
     if isinstance(tree, dict):
         return {k: _sorted(tree[k]) for k in sorted(tree)}
+    arr = _as_array(tree)
+    if arr is not None:
+        nbytes = arr.bits.nbytes if isinstance(arr, BF16Array) else arr.nbytes
+        return _chunked(arr) if nbytes > MAX_CHUNK_SIZE else arr
     return tree
 
 
@@ -126,16 +186,15 @@ def save_checkpoint(path: str, meta: Dict[str, Any], state: Dict[str, Any]) -> N
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Returns (meta, raw state): the state as nested dicts of read-only
-    numpy arrays (views into the file's bytes) and numpy scalars."""
+    numpy arrays (views into the file's bytes, or one copy for a chunked
+    array), ``BF16Array``s and numpy scalars."""
     with open(path, "rb") as f:
         data = f.read()
     payload = _msgpack.unpackb(data)
     if not isinstance(payload, dict) or set(payload) != {"meta", "state"}:
         raise ValueError(f"{path} is not a floodgan checkpoint (expected a meta/state map)")
     meta = json.loads(payload["meta"])
-    state = _msgpack.unpackb(payload["state"], ext_hook=_ext_hook)
-    _check_unchunked(state)
-    return meta, state
+    return meta, _restore_chunks(_msgpack.unpackb(payload["state"], ext_hook=_ext_hook))
 
 
 def host_snapshot(tree: Any) -> Any:
@@ -144,10 +203,13 @@ def host_snapshot(tree: Any) -> Any:
     with the live parameters, which later steps change in place."""
     if isinstance(tree, dict):
         return {k: host_snapshot(v) for k, v in tree.items()}
-    if hasattr(tree, "detach"):
-        return tree.detach().cpu().numpy().copy()
+    if torch.is_tensor(tree):
+        arr = _as_array(tree)  # a BF16Array is a copy already
+        return arr if isinstance(arr, BF16Array) else arr.copy()
     if isinstance(tree, np.ndarray):
         return tree.copy()
+    if isinstance(tree, BF16Array):
+        return BF16Array(tree.bits.copy())
     return tree
 
 

@@ -1,26 +1,32 @@
-"""Load reference (PyTorch research code) checkpoints: the paired and
-segmentation halves of floodgan_tpu/utils/migrate.py.
+"""Load reference (PyTorch research code) checkpoints: the port of
+floodgan_tpu/utils/migrate.py.
 
 The reference saves one torch pickle per interval (``.pth.tar``): for a
-GAN, the config, starting_epoch, the loss history, and the ``generator`` /
-``discriminator`` state dicts with their two Adam state dicts; for the
-U-Net, its ``model`` state dict, current_epoch, num_epochs and the loss and
-accuracy histories.  The port's modules register their parameters in the
+paired GAN, the config, starting_epoch, the loss history, and the
+``generator`` / ``discriminator`` state dicts with their two Adam state
+dicts; for a cycle GAN, the ``pre_to_post_generator``,
+``post_to_pre_generator``, ``post_discriminator`` and ``pre_discriminator``
+state dicts, with one Adam over both generators (ab's parameters, then
+ba's) and one over both Ds (post's, then pre's); for the U-Net, its
+``model`` state dict, current_epoch, num_epochs and the loss and accuracy
+histories.  The port's modules register their parameters in the
 reference's order, so the tensors map by position, and the Adam entries by
-the same positions.  ``maybe_migrate`` converts such a file once into a
-``.ckpt`` beside it.  Cycle-family files wait for ROADMAP.md Queue 1 item 9.
+the same positions.  The reference never saves its replay buffers: a cycle
+file gets empty f32 buffers (count 0) at the image size ``resize`` and
+``crop`` give.  ``maybe_migrate`` converts such a file once into a
+``.ckpt`` beside it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from floodgan_tpu_torch.ckpt.checkpoint import save_checkpoint
-from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS, _check_model, model_is_cycle
+from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS, TrainConfig, _check_model, model_is_cycle
 from floodgan_tpu_torch.models.registry import build_discriminator, build_generator
 from floodgan_tpu_torch.models.unet import UNet
 from floodgan_tpu_torch.utils.jax_params import jax_tree_from_state_dict
@@ -59,14 +65,17 @@ def _fresh_adam(module: torch.nn.Module) -> Dict:
             "nu": jax_tree_from_state_dict(module, zeros)}
 
 
-def _adam_tree(module: torch.nn.Module, opt_sd: Dict, what: str) -> Dict:
+def _adam_tree(module: torch.nn.Module, opt_sd: Dict, what: str, offset: int = 0, modules: int = 1) -> Dict:
     """optax ``{count, mu, nu}`` from a torch Adam state dict over
-    ``module``'s parameters (the reference's single param group)."""
+    ``module``'s parameters: the ``offset``-th of the ``modules`` equal
+    modules whose parameters the optimizer holds in turn."""
     indices: List[int] = [i for g in opt_sd.get("param_groups", []) for i in g["params"]]
-    entries = [opt_sd.get("state", {}).get(i) for i in indices]
     names = [n for n, _ in module.named_parameters()]
-    if len(entries) != len(names):
-        raise ValueError(f"{what}: the optimizer holds {len(entries)} parameters, the module {len(names)}")
+    if len(indices) != modules * len(names):
+        raise ValueError(f"{what}: the optimizer holds {len(indices)} parameters, the modules "
+                         f"{modules} x {len(names)}")
+    indices = indices[offset * len(names):(offset + 1) * len(names)]
+    entries = [opt_sd.get("state", {}).get(i) for i in indices]
     if all(e is None for e in entries):
         return _fresh_adam(module)
     if any(e is None for e in entries):
@@ -79,23 +88,51 @@ def _adam_tree(module: torch.nn.Module, opt_sd: Dict, what: str) -> Dict:
             "nu": jax_tree_from_state_dict(module, nu)}
 
 
-def migrate_gan(in_path: str, out_path: str) -> str:
-    """Convert a reference paired-GAN ``.pth.tar`` into a ``.ckpt``."""
+def _params(module: torch.nn.Module, saved: Dict, key: str) -> Dict:
+    return jax_tree_from_state_dict(module, _by_position(module, saved[key], key))
+
+
+def _cycle_state(saved: Dict, gen: torch.nn.Module, disc: torch.nn.Module, channels: int, size: int) -> Dict:
+    """The JAX ``CycleState`` tree of a reference cycle file."""
+    state = {}
+    for params_key, opt_key, module, opt_name, groups in (
+        ("gen_params", "gen_opt", gen, "optimizer_generator",
+         (("ab", "pre_to_post_generator"), ("ba", "post_to_pre_generator"))),
+        ("disc_params", "disc_opt", disc, "optimizer_discriminator",
+         (("post", "post_discriminator"), ("pre", "pre_discriminator"))),
+    ):
+        state[params_key] = {k: _params(module, saved, ref) for k, ref in groups}
+        trees = {k: _adam_tree(module, saved[opt_name], ref, offset=i, modules=2)
+                 for i, (k, ref) in enumerate(groups)}
+        state[opt_key] = {"count": trees[groups[0][0]]["count"],
+                          "mu": {k: t["mu"] for k, t in trees.items()},
+                          "nu": {k: t["nu"] for k, t in trees.items()}}
+    for key in ("pre_buffer", "post_buffer"):
+        state[key] = {"count": np.asarray(0, np.int32),
+                      "images": np.zeros((TrainConfig().buffer_size, size, size, channels), np.float32)}
+    return state
+
+
+def migrate_gan(in_path: str, out_path: str, resize: Optional[int] = 256, crop: Optional[int] = None) -> str:
+    """Convert a reference GAN ``.pth.tar`` into a ``.ckpt``; ``resize``
+    and ``crop`` size a cycle file's replay buffers."""
     saved = torch.load(in_path, map_location="cpu", weights_only=True)
     model = _check_model(saved["model"])
-    if model_is_cycle(model):
-        raise NotImplementedError(
-            f"{model} checkpoints wait for the cycle family (ROADMAP.md Queue 1, item 9)"
-        )
     channels = TOPOGRAPHY_CHANNELS[saved["topography"]]
     gen = build_generator(model, channels)
-    disc = build_discriminator(model, channels + 3)
-    state = {
-        "disc_opt": _adam_tree(disc, saved["optimizer_discriminator"], "discriminator"),
-        "disc_params": jax_tree_from_state_dict(disc, _by_position(disc, saved["discriminator"], "discriminator")),
-        "gen_opt": _adam_tree(gen, saved["optimizer_generator"], "generator"),
-        "gen_params": jax_tree_from_state_dict(gen, _by_position(gen, saved["generator"], "generator")),
-    }
+    if model_is_cycle(model):
+        size = resize or 256
+        if crop:
+            size //= int(np.sqrt(crop))
+        state = _cycle_state(saved, gen, build_discriminator(model, channels), channels, size)
+    else:
+        disc = build_discriminator(model, channels + 3)
+        state = {
+            "disc_opt": _adam_tree(disc, saved["optimizer_discriminator"], "discriminator"),
+            "disc_params": _params(disc, saved, "discriminator"),
+            "gen_opt": _adam_tree(gen, saved["optimizer_generator"], "generator"),
+            "gen_params": _params(gen, saved, "generator"),
+        }
     meta = {
         "model": model,
         "starting_epoch": int(saved["starting_epoch"]),
@@ -132,16 +169,15 @@ def migrate_seg(in_path: str, out_path: str) -> str:
     return out_path
 
 
-def maybe_migrate(path: str, kind: str = "gan") -> str:
+def maybe_migrate(path: str, kind: str = "gan", resize: Optional[int] = 256, crop: Optional[int] = None) -> str:
     """``path`` itself for a ``.ckpt``.  For a reference torch file (``kind``
     "gan" or "seg"), the path of ``<path>.floodgan.ckpt``, converted on the
-    first load and reused while it is newer than the source.  (The JAX
-    version also takes resize and crop, which size the cycle family's image
-    buffers.)"""
+    first load and reused while it is newer than the source; ``resize`` and
+    ``crop`` size a cycle file's replay buffers."""
     if not is_torch_checkpoint(path):
         return path
     out = path + ".floodgan.ckpt"
     if os.path.isfile(out) and os.path.getmtime(out) >= os.path.getmtime(path):
         return out
     print(f"Reference (PyTorch) checkpoint detected - migrating to {out}")
-    return migrate_seg(path, out) if kind == "seg" else migrate_gan(path, out)
+    return migrate_seg(path, out) if kind == "seg" else migrate_gan(path, out, resize, crop)

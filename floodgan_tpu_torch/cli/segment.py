@@ -10,14 +10,16 @@
 
 ``--train`` trains the U-Net on ``DATA/masks_input`` / ``masks_output`` and
 writes ``.ckpt`` files to ``DATA/models/``.  Without it the CLI evaluates a
-checkpoint: the loss figure, the sample masks (both need matplotlib) and
-the metric CSV, or with ``--plot_mask_image`` one image's mask PNG.  It runs
-on the card unless ``--device cpu`` is given.
+checkpoint: the loss figure and the sample masks (both need matplotlib;
+without it they are skipped with one notice) and the metric CSV, or with
+``--plot_mask_image`` one image's mask PNG.  It runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 
 
@@ -62,8 +64,11 @@ def main(argv=None):
     elif args.plot_mask_image:
         model.plot_mask_image(args.plot_mask_image)
     else:
-        model.plot_loss()
-        model.plot_sample_images(10, args.use_test_data)
+        if importlib.util.find_spec("matplotlib") is None:
+            print("matplotlib is not installed: skipping the loss figure and the sample masks")
+        else:
+            model.plot_loss()
+            model.plot_sample_images(10, args.use_test_data)
         model.calculate_metrics(args.use_test_data)
     return model
 

@@ -7,8 +7,9 @@
         --topography=all --resize=512 --batch_size=8 --compute_dtype=bfloat16 \\
         --num_epochs=3 --save_model_interval=1 --verbose
 
-It trains on the card unless ``--device cpu`` is given.  The paired family
-(PairedAttention) is ported; the other models raise NotImplementedError.
+It trains any of the four families (Pix2Pix and PairedAttention with the
+paired step, CycleGAN and AttentionGAN with the cycle step) on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -19,8 +20,7 @@ import os
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="Adversarial training for the flood-prediction generators, on an NVIDIA card "
-                    "(pairedattention; pix2pix, cyclegan and attentiongan wait for their slices)"
+        description="Adversarial training for the flood-prediction generators, on an NVIDIA card"
     )
     parser.add_argument("--model", required=True, help="Architecture to use: pix2pix, cyclegan, attentiongan, or pairedattention (case-insensitive)")
     parser.add_argument("--dataset_subset", required=True, help="Dataset slice to load: a country (usa, india), a disaster name, 'all', or one of the special splits (harveyflorence, harveyonflorence, testing)")
@@ -69,7 +69,10 @@ def main(argv=None):
     args.training_model = True
     train_model = api_model.Model(**vars(args))
     with trace(profile_dir):
-        train_model.train_paired()
+        if train_model.model_is_cycle:
+            train_model.train_cycle()
+        else:
+            train_model.train_paired()
     return train_model
 
 

@@ -1,5 +1,6 @@
-"""Weight initialisation of the reference's ``initialise_weights`` and the
-batch-norm layer of the U-Net.
+"""Weight initialisation of the reference's ``initialise_weights``, the
+batch-norm layer of the U-Net, the Pix2Pix U-Net and the BatchNorm
+PatchGAN, and Pix2Pix's dropout.
 
 Conv and transposed-conv weights ~ N(0, 0.02) with zero bias, batch-norm
 scale ~ 1 + 0.02 N(0, 1) with zero bias (floodgan_tpu/models/layers.py:16-20,
@@ -8,6 +9,8 @@ scale ~ 1 + 0.02 N(0, 1) with zero bias (floodgan_tpu/models/layers.py:16-20,
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,6 +30,28 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nn_ops.batch_norm(x, self.weight, self.bias)
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout`` as floodgan_tpu/models/layers.py:188-199 has it
+    (``TorchDropout`` over ``ops.dropout``): inverted dropout, ``x / keep``
+    where kept and 0 elsewhere, active in training and at inference alike.
+    The reference pins the inference draws with a fixed seed, so the caller
+    passes the ``torch.Generator`` (on ``x``'s device) the mask is drawn
+    from.  Rate 0 is the identity and draws nothing."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout at a rate above 0 draws its mask from a generator the caller passes")
+        keep = 1.0 - self.rate
+        kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
 @torch.no_grad()

@@ -41,22 +41,26 @@ import torch
 from floodgan_tpu_torch.ckpt import load_checkpoint
 from floodgan_tpu_torch.core.config import TOPOGRAPHY_CHANNELS, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
+from floodgan_tpu_torch.core import rng
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
-from floodgan_tpu_torch.models.registry import build_generator
+from floodgan_tpu_torch.models.registry import build_generator, generator_image, generator_returns_mask
 from floodgan_tpu_torch.utils.jax_params import state_dict_from_jax
 
 class InferenceEngine:
-    """The serving forward of one attention generator at a fixed shape.
+    """The serving forward of one generator, of any family, at a fixed
+    shape.
 
-    ``gen_params`` is the generator's ``state_dict`` (for AttentionGAN, the
-    A->B generator's).  Serving is f32: ``predict`` runs under
+    ``gen_params`` is the generator's ``state_dict`` (for a cycle family,
+    the A->B generator's).  Serving is f32: ``predict`` runs under
     ``full_f32()`` (TF32 off for convolutions and matmuls), and
     ``compute_dtype`` is accepted and, as in the JAX engine, leaves the
     forward in f32.  ``wire_dtype`` is the dtype inputs are cast to on the
     host, before the copy to ``device``; they are upcast to f32 there.
-    ``seed`` is kept for the JAX signature: the attention generator has no
-    dropout, so the forward draws no random numbers.  ``device=None`` means
-    the card, and raises when there is none.
+    Pix2Pix's dropout stays active, as in the reference, and each forward
+    draws it from a fresh seed-47 generator (floodgan_tpu/serve.py:69 uses
+    the fixed inference key); ``seed`` is kept for the JAX signature.  The
+    other families draw no random numbers.  ``device=None`` means the
+    card, and raises when there is none.
     """
 
     def __init__(
@@ -87,6 +91,8 @@ class InferenceEngine:
         generator = build_generator(model, self.channels)
         generator.load_state_dict(gen_params)
         self.generator = generator.to(self.device).eval()
+        self.returns_mask = generator_returns_mask(model)
+        self.has_dropout = model == "pix2pix"
         if aot:
             self.predict(torch.zeros((batch_size,) + self.input_shape))
             self._sync()
@@ -97,8 +103,8 @@ class InferenceEngine:
     ) -> "InferenceEngine":
         """The engine of a ``.ckpt`` file's generator: the model and
         topography come from its meta, the weights from
-        ``raw["gen_params"]`` (for a cycle-family AttentionGAN file, the
-        A->B generator's, ``raw["gen_params"]["ab"]``)."""
+        ``raw["gen_params"]`` (for a cycle-family file, the A->B
+        generator's, ``raw["gen_params"]["ab"]``)."""
         meta, raw = load_checkpoint(ckpt_path)
         model, topography = meta["model"], meta["topography"]
         tree = raw["gen_params"]["ab"] if model_is_cycle(model) else raw["gen_params"]
@@ -133,7 +139,8 @@ class InferenceEngine:
         x = x.to(self.wire_dtype).to(self.device)
         with full_f32(), torch.inference_mode():
             x = x.float().permute(0, 3, 1, 2).contiguous()
-            out, _ = self.generator(x)
+            dropout = rng.inference(self.device) if self.has_dropout else None
+            out = generator_image(self.generator, self.returns_mask, x, dropout)
             return denormalize(out).permute(0, 2, 3, 1).contiguous()
 
     @property

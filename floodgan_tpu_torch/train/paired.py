@@ -1,5 +1,5 @@
 """Paired adversarial training on the card: the port of
-floodgan_tpu/train/paired.py for the attention family (PairedAttention).
+floodgan_tpu/train/paired.py for Pix2Pix and PairedAttention.
 
 One ``train_step`` is the JAX ``_adversarial_update`` in image space:
 
@@ -24,8 +24,16 @@ the weights for the life of a region, and the G update must read D's
 updated weights.  Every step runs with TF32 off, so the f32 mode is true
 f32.
 
-Rematerialisation (the JAX ``remat`` option) and the Pix2Pix family are
-not ported yet (ROADMAP.md Queue 1).
+Pix2Pix's dropout draws its masks from ``core.rng.epoch(epoch, step)`` on
+the trainer's device, so a step's masks depend on (epoch, step) alone and
+a resumed run draws what an unbroken run draws; ``generate``
+draws from a fresh seed-47 generator on each call, the reference's
+``manual_seed(47)`` before inference.  Its batch-norm PatchGAN reads the
+synthetic and the real pairs separately: with batch statistics one 2B
+read would not be the same function.
+
+Rematerialisation (the JAX ``remat`` option) is not ported yet (ROADMAP.md
+Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -37,19 +45,32 @@ import torch
 
 from floodgan_tpu_torch.core.config import TrainConfig, _check_model, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
+from floodgan_tpu_torch.core import rng
 from floodgan_tpu_torch.models.layers import init_weights
-from floodgan_tpu_torch.models.registry import build_discriminator, build_generator
+from floodgan_tpu_torch.models.registry import (
+    build_discriminator,
+    build_generator,
+    generator_image,
+    generator_returns_mask,
+)
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def to_nchw(a, device) -> torch.Tensor:
+    """An NHWC batch (numpy or tensor) as a contiguous f32 NCHW tensor on
+    ``device``."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a, np.float32))
+    return t.to(device, torch.float32).permute(0, 3, 1, 2).contiguous()
+
+
 class PairedTrainer:
     """The paired train step and inference forward of one model family.
 
     The generator and the conditional D (``input_channels + 3`` channels)
-    are drawn by ``init_weights`` from ``torch.Generator().manual_seed(seed)``,
+    are drawn by ``init_weights`` from ``core.rng.init(seed)``,
     generator first, unless ``gen_params`` / ``disc_params`` (state dicts)
     are given.  ``device=None`` means the card, and raises when there is
     none; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -60,6 +81,7 @@ class PairedTrainer:
         model: str,
         input_channels: int,
         cfg: TrainConfig = TrainConfig(),
+        dropout_rate: float = 0.5,
         compute_dtype: str = "float32",
         device=None,
         seed: int = 47,
@@ -76,9 +98,11 @@ class PairedTrainer:
         self.cfg = cfg
         self.input_channels = input_channels
         self.compute_dtype = _DTYPES[compute_dtype]
-        generator = build_generator(model, input_channels)
+        self.returns_mask = generator_returns_mask(model)
+        self.has_dropout = model == "pix2pix" and dropout_rate > 0
+        generator = build_generator(model, input_channels, dropout_rate)
         discriminator = build_discriminator(model, input_channels + 3)
-        draws = torch.Generator().manual_seed(seed)
+        draws = rng.init(seed)
         init_weights(generator, draws)
         init_weights(discriminator, draws)
         if gen_params is not None:
@@ -91,8 +115,7 @@ class PairedTrainer:
         self.disc_opt = adam(self.discriminator.parameters(), cfg.adam_b1, cfg.adam_b2)
 
     def _nchw(self, a) -> torch.Tensor:
-        t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a, np.float32))
-        return t.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
+        return to_nchw(a, self.device)
 
     def _autocast(self):
         return torch.autocast(
@@ -100,10 +123,15 @@ class PairedTrainer:
             enabled=self.compute_dtype != torch.float32,
         )
 
-    def gen_apply(self, x: torch.Tensor) -> torch.Tensor:
+    def dropout_generator(self, epoch: int, step: int) -> Optional[torch.Generator]:
+        """The generator of step ``step`` of epoch ``epoch``'s dropout masks
+        on the trainer's device (None without dropout)."""
+        return rng.epoch(epoch, step, self.device) if self.has_dropout else None
+
+    def gen_apply(self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The generator's output image, f32 whatever the policy (NCHW)."""
         with self._autocast():
-            out, _mask = self.generator(x.to(self.compute_dtype))
+            out = generator_image(self.generator, self.returns_mask, x.to(self.compute_dtype), dropout_generator)
         return out.float()
 
     def disc_apply(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,15 +139,16 @@ class PairedTrainer:
         with self._autocast():
             return self.discriminator(x.to(self.compute_dtype)).float()
 
-    def train_step(self, input_stack, output_image, lr) -> Dict[str, torch.Tensor]:
+    def train_step(self, input_stack, output_image, lr, epoch: int = 0, step: int = 0) -> Dict[str, torch.Tensor]:
         """One D-then-G step on an NHWC batch (numpy or tensor) at learning
-        rate ``lr``.  Returns the four losses under the JAX keys, as f32
+        rate ``lr``; Pix2Pix's dropout masks are those of (``epoch``,
+        ``step``).  Returns the four losses under the JAX keys, as f32
         scalars on the trainer's device."""
         cfg = self.cfg
         x = self._nchw(input_stack)
         y = self._nchw(output_image)
         with full_f32():
-            synthetic = self.gen_apply(x)
+            synthetic = self.gen_apply(x, self.dropout_generator(epoch, step))
 
             # ---- discriminator update ----
             self.disc_opt.zero_grad(set_to_none=True)
@@ -145,7 +174,14 @@ class PairedTrainer:
     @torch.no_grad()
     def generate(self, input_stack):
         """The inference forward with the f32 parameters (paired.py:344-350):
-        NHWC stack in, (output (N,H,W,3), background mask (N,H,W)) out."""
+        NHWC stack in, (output (N,H,W,3), background mask (N,H,W) or None)
+        out.  Pix2Pix's dropout draws from a fresh seed-47 generator, so
+        every call with one input shape draws the same masks."""
+        x = self._nchw(input_stack)
         with full_f32():
-            out, mask = self.generator(self._nchw(input_stack))
+            if self.returns_mask:
+                out, mask = self.generator(x)
+            else:
+                g = rng.inference(self.device) if self.has_dropout else None
+                out, mask = generator_image(self.generator, False, x, g), None
         return out.permute(0, 2, 3, 1), mask

@@ -1,10 +1,12 @@
-"""Where the time of one paired train step goes on the card.
+"""Where the time of one train step goes on the card.
 
-    python3 -m floodgan_tpu_torch.train_profile [--batch 8] [--size 512] [--iters 5]
-                                                [--dtype bfloat16]
+    python3 -m floodgan_tpu_torch.train_profile [--model pairedattention] [--batch 8]
+                                                [--size 512] [--iters 5] [--dtype bfloat16]
 
-Builds ``PairedTrainer("pairedattention", 9)`` on the card from a seeded
-init, takes two warm-up steps, then ``iters`` steps under
+Builds the family's trainer over 9 input channels on the card from a
+seeded init (``PairedTrainer`` for PairedAttention and Pix2Pix,
+``CycleTrainer`` for CycleGAN and AttentionGAN), takes two warm-up steps,
+then ``iters`` steps under
 ``torch.profiler`` with the batch already on the card.  Prints one JSON
 line: the host wall time per step, the device's busy share of it, the
 device time per step by category (convolutions, the port's four kernels,
@@ -29,7 +31,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
+from floodgan_tpu_torch.core.config import MODEL_NAMES, model_is_cycle
 from floodgan_tpu_torch.serve_profile import CATEGORIES, busy_us, category
+from floodgan_tpu_torch.train.cycle import CycleTrainer
 from floodgan_tpu_torch.train.paired import PairedTrainer
 
 # Ahead of the serving categories: first match wins.
@@ -42,10 +46,14 @@ TRAIN_CATEGORIES = (
 ) + CATEGORIES
 
 
-def profile_trainer(batch: int, size: int, iters: int, dtype: str, seed: int = 47) -> dict:
+def profile_trainer(batch: int, size: int, iters: int, dtype: str, seed: int = 47,
+                    model: str = "pairedattention") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("train_profile needs a CUDA card")
-    trainer = PairedTrainer("pairedattention", 9, compute_dtype=dtype, seed=seed)
+    if model_is_cycle(model):
+        trainer = CycleTrainer(model, 9, (size, size), compute_dtype=dtype, seed=seed)
+    else:
+        trainer = PairedTrainer(model, 9, compute_dtype=dtype, seed=seed)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.uniform(-1.0, 1.0, (batch, size, size, 9)).astype(np.float32)).cuda()
     y = torch.from_numpy(rng.uniform(-1.0, 1.0, (batch, size, size, 3)).astype(np.float32)).cuda()
@@ -70,6 +78,7 @@ def profile_trainer(batch: int, size: int, iters: int, dtype: str, seed: int = 4
         by_name[e.name] += dur
     conv_flop = flops.get_total_flops()
     return {
+        "model": model,
         "batch": batch,
         "size": size,
         "compute_dtype": dtype,
@@ -94,12 +103,13 @@ def profile_trainer(batch: int, size: int, iters: int, dtype: str, seed: int = 4
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", default="pairedattention", choices=MODEL_NAMES)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = p.parse_args(argv)
-    out = profile_trainer(args.batch, args.size, args.iters, args.dtype)
+    out = profile_trainer(args.batch, args.size, args.iters, args.dtype, model=args.model)
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -19,6 +19,11 @@ parameter ``{step, exp_avg, exp_avg_sq}``, as
 floodgan_tpu/utils/torch_export.py:64-76 maps it.  torch creates its state
 at the first step, so ``count == 0`` is "no state".
 
+The cycle trainer's state is the JAX ``CycleState``: both generators
+(``{ab, ba}``) and both Ds (``{post, pre}``), an Adam over each pair with
+one ``count``, and the two replay buffers (``{images, count}``, images
+NHWC).
+
 Key order does not matter to either reader; ``ckpt.save_checkpoint``
 writes every map's keys sorted, as JAX does.
 """
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from floodgan_tpu_torch.ckpt.checkpoint import BF16Array
 from floodgan_tpu_torch.models.layers import BatchNorm2d
 
 
@@ -115,9 +121,9 @@ def jax_tree_from_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor]) -
     return tree
 
 
-def adam_state_to_jax(model: nn.Module, opt: torch.optim.Adam) -> dict:
-    """torch Adam's state over ``model``'s parameters -> optax's
-    ``{count, mu, nu}`` (zeros and count 0 before the first step)."""
+def _adam_moments(model: nn.Module, opt: torch.optim.Adam):
+    """(step count, mu tree, nu tree) of ``opt``'s state over ``model``'s
+    parameters (zeros and count 0 before the first step)."""
     mu, nu, steps = {}, {}, set()
     for name, p in model.named_parameters():
         st = opt.state.get(p)
@@ -129,28 +135,49 @@ def adam_state_to_jax(model: nn.Module, opt: torch.optim.Adam) -> dict:
             steps.add(0)
     if len(steps) != 1:
         raise ValueError(f"Adam's parameters were stepped unequally ({sorted(steps)}); optax keeps one count")
-    return {
-        "count": np.asarray(steps.pop(), np.int32),
-        "mu": jax_tree_from_state_dict(model, mu),
-        "nu": jax_tree_from_state_dict(model, nu),
-    }
+    return steps.pop(), jax_tree_from_state_dict(model, mu), jax_tree_from_state_dict(model, nu)
+
+
+def adam_state_to_jax(model, opt: torch.optim.Adam) -> dict:
+    """torch Adam's state over ``model``'s parameters -> optax's
+    ``{count, mu, nu}`` (zeros and count 0 before the first step).
+    ``model`` may be a mapping of names to modules that one Adam covers
+    (the cycle step's two generators): ``mu`` and ``nu`` are then maps of
+    those names, under one ``count``."""
+    if isinstance(model, nn.Module):
+        count, mu, nu = _adam_moments(model, opt)
+    else:
+        parts = {k: _adam_moments(m, opt) for k, m in model.items()}
+        counts = {c for c, _, _ in parts.values()}
+        if len(counts) != 1:
+            raise ValueError(f"one Adam stepped its modules unequally ({sorted(counts)})")
+        count = counts.pop()
+        mu, nu = {k: v[1] for k, v in parts.items()}, {k: v[2] for k, v in parts.items()}
+    return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}
+
+
+def _load_adam(opt: torch.optim.Adam, parts, count: int) -> None:
+    """Load optax moments into ``opt``: ``parts`` lists (module, mu tree,
+    nu tree) in the order ``opt`` holds the modules' parameters.  ``count
+    == 0`` clears the state; otherwise each parameter gets ``step = count``
+    (a float32 tensor, as torch keeps it) and its two moments."""
+    state, i = {}, 0
+    if count:
+        for model, mu_tree, nu_tree in parts:
+            mu = state_dict_from_jax(model, mu_tree)
+            nu = state_dict_from_jax(model, nu_tree)
+            for name, _p in model.named_parameters():
+                state[i] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                            "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                i += 1
+    # The optimizer's own groups: load_state_dict keeps their settings.
+    opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
 
 
 def adam_state_from_jax(model: nn.Module, opt: torch.optim.Adam, jax_opt: Mapping) -> None:
     """Load optax's ``{count, mu, nu}`` into ``opt``, an Adam over
-    ``model.parameters()`` built by ``train.optim.adam``.  ``count == 0``
-    clears the state; otherwise each parameter gets ``step = count`` (a
-    float32 tensor, as torch keeps it) and its two moments."""
-    count = int(np.asarray(jax_opt["count"]))
-    state = {}
-    if count:
-        mu = state_dict_from_jax(model, jax_opt["mu"])
-        nu = state_dict_from_jax(model, jax_opt["nu"])
-        for i, (name, _p) in enumerate(model.named_parameters()):
-            state[i] = {"step": torch.tensor(float(count), dtype=torch.float32),
-                        "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-    # The optimizer's own groups: load_state_dict keeps their settings.
-    opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
+    ``model.parameters()`` built by ``train.optim.adam``."""
+    _load_adam(opt, [(model, jax_opt["mu"], jax_opt["nu"])], int(np.asarray(jax_opt["count"])))
 
 
 def paired_state_to_jax(trainer) -> dict:
@@ -192,3 +219,74 @@ def load_seg_state(trainer, raw: Mapping) -> None:
     parameters and its Adam state."""
     trainer.model.load_state_dict(state_dict_from_jax(trainer.model, raw["params"]))
     adam_state_from_jax(trainer.model, trainer.opt, raw["opt"])
+
+
+# The cycle trainer's networks under the JAX CycleState's keys, in the order
+# its two Adams hold them.
+_CYCLE_NETS = {
+    "gen": ("gen_params", "gen_opt", (("ab", "gen_ab"), ("ba", "gen_ba"))),
+    "disc": ("disc_params", "disc_opt", (("post", "disc_post"), ("pre", "disc_pre"))),
+}
+_BUFFERS = ("pre_buffer", "post_buffer")
+
+
+def _buffer_to_jax(buffer) -> dict:
+    """An ``ImageBuffer`` as the JAX ``ImageBuffer`` tree: ``images`` (cap,
+    H, W, C) in the buffer's dtype (a ``BF16Array`` for bf16) and a 0-d int32
+    ``count``."""
+    images = buffer.images.permute(0, 2, 3, 1)
+    if images.dtype == torch.bfloat16:
+        images = BF16Array.from_tensor(images)
+    else:
+        images = np.ascontiguousarray(images.detach().cpu().numpy())
+    return {"images": images, "count": np.asarray(buffer.count, np.int32)}
+
+
+def _load_buffer(buffer, raw: Mapping, key: str) -> None:
+    """Fill an ``ImageBuffer`` from a JAX buffer tree.  Images written in
+    the 2x2 phase layout (cap, H/2, W/2, 4C), as JAX writes them where its
+    phase-space cycle step runs (floodgan_tpu/api/model.py:52-82), are
+    depth-to-spaced back to (cap, H, W, C) first."""
+    images = raw["images"]
+    t = images.to_tensor() if isinstance(images, BF16Array) else torch.from_numpy(np.array(images))
+    cap, c, h, w = buffer.images.shape
+    n, a, b, d = t.shape
+    if (n, a, b, d) == (cap, h // 2, w // 2, 4 * c) and (h, w) == (2 * a, 2 * b):
+        t = t.reshape(n, a, b, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
+    elif (n, a, b, d) != (cap, h, w, c):
+        raise ValueError(f"checkpoint {key} images {tuple(t.shape)} fit neither the buffer's "
+                         f"{(cap, h, w, c)} nor its 2x2 phase layout")
+    buffer.images.copy_(t.permute(0, 3, 1, 2))
+    buffer.count = int(np.asarray(raw["count"]))
+
+
+def cycle_state_to_jax(trainer) -> dict:
+    """A ``train.cycle.CycleTrainer``'s whole state as the JAX
+    ``CycleState`` tree: ``gen_params`` ``{ab, ba}``, ``disc_params``
+    ``{post, pre}``, the two Adams with one ``count`` each over those maps,
+    and ``pre_buffer`` / ``post_buffer``."""
+    state = {}
+    for params_key, opt_key, names in _CYCLE_NETS.values():
+        nets = {k: getattr(trainer, attr) for k, attr in names}
+        state[params_key] = {k: jax_tree_from_state_dict(m, dict(m.named_parameters())) for k, m in nets.items()}
+        state[opt_key] = adam_state_to_jax(nets, getattr(trainer, opt_key))
+    for key in _BUFFERS:
+        state[key] = _buffer_to_jax(getattr(trainer, key))
+    return state
+
+
+@torch.no_grad()
+def load_cycle_state(trainer, raw: Mapping) -> None:
+    """Load a JAX ``CycleState`` tree (as ``ckpt.load_checkpoint`` reads it)
+    into a ``CycleTrainer``: the four networks, both Adams and both
+    buffers."""
+    for params_key, opt_key, names in _CYCLE_NETS.values():
+        jax_opt = raw[opt_key]
+        parts = []
+        for k, attr in names:
+            module = getattr(trainer, attr)
+            module.load_state_dict(state_dict_from_jax(module, raw[params_key][k]))
+            parts.append((module, jax_opt["mu"][k], jax_opt["nu"][k]))
+        _load_adam(getattr(trainer, opt_key), parts, int(np.asarray(jax_opt["count"])))
+    for key in _BUFFERS:
+        _load_buffer(getattr(trainer, key), raw[key], key)

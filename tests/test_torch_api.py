@@ -122,8 +122,7 @@ def test_not_ported_paths_name_their_roadmap_items(runs, tmp_path):
               device="cpu", **KW)
     for extra, item in ((dict(model="PairedAttention", num_data_devices=2), "item 12"),
                         (dict(model="PairedAttention", remat=True), "item 1"),
-                        (dict(model="CycleGAN"), "item 9"), (dict(model="AttentionGAN"), "item 9"),
-                        (dict(model="Pix2Pix"), "item 8")):
+                        (dict(model="CycleGAN", remat=True), "item 1")):
         with pytest.raises(NotImplementedError, match=item):
             Model(**extra, **kw)
     from floodgan_tpu_torch.api.segmentation import SegmentationModel

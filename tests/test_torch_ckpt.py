@@ -123,17 +123,74 @@ def test_state_bytes_and_values_match_flax():
 
 
 def test_unsupported_leaves_raise(tmp_path):
-    bf16 = serialization.msgpack_serialize({"x": jnp.ones((2,), jnp.bfloat16)})
-    with pytest.raises(ValueError, match="bfloat16"):
-        _msgpack.unpackb(bf16, ext_hook=checkpoint._ext_hook)
-    path = str(tmp_path / "chunked.ckpt")
-    with open(path, "wb") as f:
-        f.write(msgpack.packb({"meta": "{}", "state": msgpack.packb(
-            {"w": {checkpoint.CHUNKED_KEY: True, "shape": {"0": 2}, "chunks": {}}})}))
-    with pytest.raises(ValueError, match="chunked"):
-        load_checkpoint(path)
+    """Leaves flax cannot write either: a Python object, a structured or an
+    object array, and an ext type that is not a checkpoint type."""
     with pytest.raises(TypeError, match="cannot checkpoint"):
         save_checkpoint(str(tmp_path / "x.ckpt"), {}, {"w": object()})
+    for arr in (np.zeros(2, dtype=[("a", np.int32)]), np.array([None, 1], dtype=object)):
+        with pytest.raises(ValueError, match="cannot checkpoint an array"):
+            checkpoint.serialize_state({"w": arr})
+    with pytest.raises(ValueError, match="not a checkpoint type"):
+        _msgpack.unpackb(msgpack.packb(msgpack.ExtType(9, b"xy")), ext_hook=checkpoint._ext_hook)
+
+
+def _bf16_tree():
+    rng = np.random.default_rng(5)
+    return {"buf": {"images": jnp.asarray(rng.standard_normal((3, 4, 5, 2)), jnp.bfloat16),
+                    "count": np.asarray(3, np.int32)},
+            "scalar": jnp.asarray(1.5, jnp.bfloat16)}
+
+
+def test_bf16_leaves_match_flax_both_ways():
+    """A bf16 array (a cycle replay buffer under bf16) writes as flax
+    writes it, from a ``BF16Array`` or a bf16 tensor, and reads back as a
+    ``BF16Array`` of the same bits."""
+    tree = _bf16_tree()
+    want = serialization.msgpack_serialize(tree)
+    bits = {k: np.asarray(v).view(np.uint16) for k, v in (("images", tree["buf"]["images"]),
+                                                             ("scalar", tree["scalar"]))}
+    as_bf16 = {"buf": {"images": checkpoint.BF16Array(bits["images"]), "count": tree["buf"]["count"]},
+               "scalar": checkpoint.BF16Array(bits["scalar"])}
+    as_tensor = {"buf": {"images": checkpoint.BF16Array(bits["images"]).to_tensor(), "count": tree["buf"]["count"]},
+                 "scalar": checkpoint.BF16Array(bits["scalar"]).to_tensor()}
+    for port_tree in (as_bf16, as_tensor):
+        assert b"".join(bytes(c) for c in checkpoint.serialize_state(port_tree)) == want
+    got = _msgpack.unpackb(want, ext_hook=checkpoint._ext_hook)
+    for key, leaf in (("images", got["buf"]["images"]), ("scalar", got["scalar"])):
+        assert isinstance(leaf, checkpoint.BF16Array) and leaf.shape == bits[key].shape
+        np.testing.assert_array_equal(leaf.bits, bits[key])
+    assert torch.equal(got["buf"]["images"].to_tensor().float(),
+                       torch.from_numpy(np.asarray(tree["buf"]["images"], np.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_arrays_match_flax_both_ways(monkeypatch, tmp_path, dtype):
+    """An array over flax's MAX_CHUNK_SIZE is written as flax's
+    ``__msgpack_chunked_array__`` map and read back whole.  The limit is
+    patched down to 64 bytes on both sides: a 50-slot f32 buffer at
+    1024^2 x 9 channels is 1.89 GB."""
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    monkeypatch.setattr(checkpoint, "MAX_CHUNK_SIZE", 64)
+    rng = np.random.default_rng(8)
+    big = jnp.asarray(rng.standard_normal((5, 3, 7)), dtype)  # 105 elements: 64-byte chunks and a tail
+    tree = {"a": {"images": big, "count": np.asarray(2, np.int32)}, "small": np.ones(3, np.float32)}
+    want = serialization.msgpack_serialize(tree)
+    assert checkpoint.CHUNKED_KEY.encode() in want
+    port_big = checkpoint.BF16Array(np.asarray(big).view(np.uint16)) if dtype == "bfloat16" else np.asarray(big)
+    port_tree = {"a": {"images": port_big, "count": tree["a"]["count"]}, "small": tree["small"]}
+    assert b"".join(bytes(c) for c in checkpoint.serialize_state(port_tree)) == want
+    path = str(tmp_path / "chunked.ckpt")
+    jax_save_checkpoint(path, META, tree)
+    _, raw = load_checkpoint(path)
+    leaf = raw["a"]["images"]
+    got = leaf.bits if dtype == "bfloat16" else leaf
+    assert got.shape == big.shape
+    assert got.tobytes() == np.asarray(big).tobytes()
+    np.testing.assert_array_equal(raw["small"], tree["small"])
+    # ... and flax reads the port's file back whole.
+    save_checkpoint(path, META, port_tree)
+    _, jraw = jax_load_checkpoint(path)
+    assert np.asarray(jraw["a"]["images"]).tobytes() == np.asarray(big).tobytes()
 
 
 # ------------------------------------------------------- JAX state round trip
@@ -268,11 +325,13 @@ def test_reference_checkpoint_migrates_like_jax(jax_states, tmp_path):
 
 
 def test_migrate_raises_for_cycle_and_segmentation_files(tmp_path):
-    """Cycle-family files wait for their ROADMAP item; segmentation files
-    migrate (tests/test_torch_seg.py), and a GAN file read as one raises."""
+    """Cycle-family files migrate (tests/test_torch_cycle_ckpt.py holds them
+    against JAX's), so a cycle file without its four networks raises for
+    the missing one; segmentation files migrate (tests/test_torch_seg.py),
+    and a GAN file read as one raises."""
     path = str(tmp_path / "cycle.pth.tar")
     torch.save({"model": "attentiongan", "topography": "dem"}, path)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(KeyError, match="pre_to_post_generator"):
         migrate.maybe_migrate(path)
     with pytest.raises(ValueError, match="no segmentation U-Net state dict"):
         migrate.maybe_migrate(path, kind="seg")

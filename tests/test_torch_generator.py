@@ -104,5 +104,12 @@ def test_seeded_init():
 
 @pytest.mark.parametrize("model", ["pix2pix", "cyclegan", "nosuchmodel"])
 def test_registry_raises_for_families_not_ported(model):
-    with pytest.raises(NotImplementedError):
-        build_generator(model, 9)
+    """Every family of the JAX package is ported: the registry builds
+    Pix2Pix and CycleGAN, and only an unknown name raises."""
+    if model == "nosuchmodel":
+        with pytest.raises(NotImplementedError):
+            build_generator(model, 9)
+        return
+    g = build_generator(model, 9)
+    first = next(m for m in g.modules() if isinstance(m, torch.nn.Conv2d))
+    assert first.in_channels == 9

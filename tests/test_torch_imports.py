@@ -1,7 +1,7 @@
 """Import guard: the port and chip_smoke.py import no JAX-stack module,
 nothing of the JAX package (only tests import both), no pandas or msgpack
 (the card's machine has neither), and matplotlib only inside the plot
-functions (``plot_*``)."""
+functions (``plot_*`` and ``compare_output_images``)."""
 
 import ast
 from pathlib import Path
@@ -33,15 +33,17 @@ def test_scan_covers_the_port():
         "utils/jax_params.py", "utils/profiling.py", "utils/png.py", "data/tiff.py", "data/native.py",
         "data/splits.py", "data/pipeline.py", "api/paths.py", "api/model.py", "cli/train.py", "cli/predict.py",
         "models/unet.py", "train/seg.py", "eval/metrics.py", "eval/lpips.py", "api/segmentation.py",
-        "cli/evaluate.py", "cli/segment.py", "utils/tables.py",
+        "cli/evaluate.py", "cli/segment.py", "utils/tables.py", "core/rng.py", "models/pix2pix.py",
+        "models/cyclegan.py", "train/cycle.py", "api/group.py", "cli/compare.py",
     )} | {"chip_smoke.py"} <= names
 
 
 def plot_function_lines(path: Path):
-    """The line numbers inside functions named plot_*."""
+    """The line numbers inside functions named plot_* or
+    compare_output_images."""
     lines = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-        if isinstance(node, ast.FunctionDef) and node.name.startswith("plot_"):
+        if isinstance(node, ast.FunctionDef) and (node.name.startswith("plot_") or node.name == "compare_output_images"):
             lines.update(range(node.lineno, node.end_lineno + 1))
     return lines
 
@@ -69,7 +71,9 @@ def test_guard_allows_matplotlib_only_in_plot_functions(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(
         "def plot_losses():\n    import matplotlib.pyplot as plt\n\n"
-        "def generate():\n    import matplotlib\n"
+        "def generate():\n    import matplotlib\n\n"
+        "def compare_output_images():\n    import matplotlib\n"
     )
     plots = plot_function_lines(src)
-    assert [(line, line in plots) for line, m in imported_top_levels(src) if m in PLOT_ONLY] == [(2, True), (5, False)]
+    assert [(line, line in plots) for line, m in imported_top_levels(src) if m in PLOT_ONLY] == [
+        (2, True), (5, False), (8, True)]

@@ -122,7 +122,11 @@ def test_registry_properties_match_jax(model):
 
 
 def test_batchnorm_discriminator_waits_for_the_pix2pix_slice():
-    with pytest.raises(NotImplementedError, match="Pix2Pix"):
-        registry.build_discriminator("pix2pix", 12)
+    """Pix2Pix's D is the batch-norm PatchGAN, its normed convs without
+    bias (tests/test_torch_pix2pix.py holds it against JAX's); the others
+    keep instance norm."""
+    d = registry.build_discriminator("pix2pix", 12)
+    assert isinstance(d, PatchGANDiscriminator) and d.norm == "batch" and d.conv0.in_channels == 12
+    assert all(getattr(d, f"conv{n}").bias is None for n in (1, 2, 3))
     d = registry.build_discriminator("pairedattention", 12)
-    assert isinstance(d, PatchGANDiscriminator) and d.conv0.in_channels == 12
+    assert isinstance(d, PatchGANDiscriminator) and d.conv0.in_channels == 12 and d.norm == "instance"
