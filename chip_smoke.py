@@ -8,7 +8,8 @@ PairedAttention (topography "all", 9 input channels) at 512^2, the
 content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
 64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
 evaluation with the segmentation U-Net, the other three families (Pix2Pix
-and the cycle step of CycleGAN and AttentionGAN), and the comparison CLI.
+and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
+data-parallel path, and the comparison CLI.
 It fails unless every phase passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
@@ -105,7 +106,36 @@ It fails unless every phase passes:
               InferenceEngine.from_checkpoint on each .ckpt against the
               trained Model's generate (within TOL_CKPT_PREDICT; Pix2Pix's
               dropout on the seed-47 stream on both sides).
-12. compare - python -m floodgan_tpu_torch.cli.compare --compare models
+12. remat  - rematerialisation: the aten ops a convolution reaches the convs
+              policy as on the card (exactly CONV_OPS); AttentionGAN
+              (CycleTrainer, [families]' seed and batch: 512^2, batch 8,
+              bf16, topography all) under convs, boundaries and full: one
+              step launches exactly REMAT_CYCLE_LAUNCHES (K1 212, K2 112, K3
+              8, K4 4: each of the 4 generator reads runs its forward
+              kernels again), step-1 losses equal the plain trainer's bit
+              for bit, step-2 within TOL_REMAT_STEP2, five steps finite and
+              moving every network, then the median step of 10 and the
+              peak, beside [families]' no-remat figures; AttentionGAN at
+              1024^2, batch 8, bf16 under the policy with the least peak (3
+              steps, finite, exact launches, ms and peak); PairedAttention
+              under boundaries and full (REMAT_PAIRED_LAUNCHES, K1 59, K2
+              34, K3 2, K4 1; ms and peak beside [train]'s); the U-Net at
+              1024^2, batch 8, f32 with remat (the JAX segment CLI's case;
+              no launch); python -m floodgan_tpu_torch.cli.train --remat on
+              [cli]'s tiles (1 epoch, exact launches).
+13. dp      - a world-size-1 NCCL process group on the card: Pix2Pix (batch
+              norm through the global-statistics all-reduces), PairedAttention
+              and AttentionGAN (its buffers gathered and striped), each
+              DP_STEPS steps on a DataMesh against the plain trainer, which
+              runs twice.  Every collective returns its input bit for bit,
+              the launches are the same, step-1 losses are bit for bit;
+              where the two plain runs agree bit for bit (Pix2Pix: no
+              reflect pad), the mesh's run equals them in every loss and
+              parameter; where they do not (a reflect pad's backward
+              accumulates with atomics), step 2 within TOL_REMAT_STEP2.  The gradient
+              all-reduce's ms a step (CUDA events); a .sharded directory of
+              the AttentionGAN state written and read back bit for bit.
+14. compare - python -m floodgan_tpu_torch.cli.compare --compare models
               --calculate_metrics on [cli]'s epoch-3 PairedAttention .ckpt
               and [families]' three, with [eval]'s seg .ckpt, on [cli]'s 8
               validation images at 512^2 (batch 1, LPIPS on the fallback
@@ -115,7 +145,7 @@ It fails unless every phase passes:
               launches K1 73 times and K3 twice, nothing else.  Prints the
               wall time and each model's mean Inference.  Then --compare two
               on the Pix2Pix and CycleGAN files.
-13. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
+15. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
               2, f32 (TF32 off) on the card and on the CPU (plain versions):
               step-1 and step-2 losses.
 
@@ -232,6 +262,21 @@ FAMILIES = {"pix2pix": "Pix2Pix", "cyclegan": "CycleGAN", "attentiongan": "Atten
 # [compare]: the generator forwards of one image under --compare models.
 COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0}
 COMPARE_MODELS = ("PairedAttention", "Pix2Pix", "AttentionGAN", "CycleGAN")
+# [remat]: a recomputed generator read launches its forward kernels again
+# in the backward: 25 K1 and one K3 per attention-generator read, under every
+# policy.  Early stop leaves none out: the last op of each segment that saves
+# a tensor for the backward is an IN or the compose, whose autograd Function
+# packs its saved inputs after its kernel ran.  4 reads a cycle step, 1 a
+# paired step; no backward kernel runs more often.
+REMAT_POLICIES = ("convs", "boundaries", "full")
+REMAT_CYCLE_LAUNCHES = {"in_act": 112 + 4 * 25, "in_bwd": 112, "compose": 4 + 4, "compose_bwd": 4, "copy": 0}
+REMAT_PAIRED_LAUNCHES = {"in_act": 34 + 25, "in_bwd": 34, "compose": 1 + 1, "compose_bwd": 1, "copy": 0}
+REMAT_TIMED = 10
+REMAT_BIG = 2 * S          # the xBD tile's native size
+REMAT_BIG_STEPS = 3
+SEG_REMAT_STEPS = 3        # the U-Net at REMAT_BIG, batch BATCH, f32 (floodgan_tpu/cli/segment.py:27)
+TOL_REMAT_STEP2 = 2e-3     # step-2 losses follow an Adam update (TOL_TRAIN_STEP2's reason)
+DP_STEPS = 2               # [dp]: steps compared bit for bit at world size 1
 # The metric CSV's columns in the JAX package's order
 # (floodgan_tpu/api/model.py:614-619).
 JAX_METRIC_COLUMNS = (
@@ -847,7 +892,7 @@ def phase_train(smi) -> dict:
                  f"peak memory {peak / 2**30:.3f} GiB ({smi})")
     del trainer, x, y
     torch.cuda.empty_cache()
-    return counts, BATCH / (step_ms / 1e3)
+    return counts, BATCH / (step_ms / 1e3), (step_ms, peak / 2**30)
 
 
 def phase_head(smi) -> dict:
@@ -1551,8 +1596,8 @@ def _family_nets(trainer) -> tuple:
 
 def phase_families(smi, root: str, tests: list, paired_rate: float) -> tuple:
     """Pix2Pix, CycleGAN and AttentionGAN at full width (module docstring,
-    phase 11).  Returns the launch counts of its runs and the three
-    families' ``.ckpt`` files."""
+    phase 11).  Returns the launch counts of its runs, the three families'
+    ``.ckpt`` files and each family's (step ms, peak GiB)."""
     import glob
     import os
 
@@ -1566,7 +1611,7 @@ def phase_families(smi, root: str, tests: list, paired_rate: float) -> tuple:
     zero, read, total = launches.zero, launches.read, launches.total
     x, y = _train_inputs(np.random.default_rng(SEED + 7), BATCH, S)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
-    rates = {}
+    rates, figures = {}, {}
 
     # ---- the train steps of each family, from seeded inits ----
     for model in FAMILIES:
@@ -1611,6 +1656,7 @@ def phase_families(smi, root: str, tests: list, paired_rate: float) -> tuple:
         step_ms = statistics.median(times) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
         rates[model] = BATCH / (step_ms / 1e3)
+        figures[model] = (step_ms, peak)
         say("families", f"{FAMILIES[model]} {S}^2 batch {BATCH} bf16, seed {SEED}: one step launched {counts}{extra}; "
                         f"set-up {setup:.2f} s; after 5 steps losses {json.dumps(losses)}; weights moved: "
                         + ", ".join(f"{n} {mv[0]}/{mv[1]}" for n, mv in moved.items()))
@@ -1696,7 +1742,7 @@ def phase_families(smi, root: str, tests: list, paired_rate: float) -> tuple:
                     + ", ".join(f"{FAMILIES[m]} {d:.3g}" for m, d in diffs.items()) + f" (tol {TOL_CKPT_PREDICT:g})")
     models.clear()
     torch.cuda.empty_cache()
-    return total, ckpts
+    return total, ckpts, figures
 
 
 def _serve_launches(model: str) -> dict:
@@ -1711,7 +1757,7 @@ def _serve_launches(model: str) -> dict:
 
 def phase_compare(smi, root: str, ckpts: dict, seg_ckpt: str) -> dict:
     """The comparison CLI on one .ckpt of each family (module docstring,
-    phase 12).  Returns the launch counts of its runs."""
+    phase 14).  Returns the launch counts of its runs."""
     import csv
     import glob
     import os
@@ -1774,6 +1820,351 @@ def phase_compare(smi, root: str, ckpts: dict, seg_ckpt: str) -> dict:
     return total
 
 
+def _losses(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _timed_steps(step, n: int) -> tuple:
+    """(median ms, min ms, max ms) of ``n`` calls of ``step(i)``, each to a
+    synchronise of the card."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def _conv_ops_at_the_policy() -> list:
+    """The aten ops with "conv" in their name that reach ``convs``'s policy
+    in one bf16 AttentionGAN generator read and its backward on the card."""
+    from floodgan_tpu_torch.train import remat as remat_lib
+    from floodgan_tpu_torch.train.cycle import CycleTrainer
+
+    seen, policy = set(), remat_lib._convs_policy
+
+    def recording(ctx, op, *args, **kwargs):
+        seen.add(str(op))
+        return policy(ctx, op, *args, **kwargs)
+
+    remat_lib._convs_policy = recording
+    try:
+        t = CycleTrainer("attentiongan", 9, (64, 64), compute_dtype="bfloat16", remat=True,
+                         remat_policy="convs", seed=SEED)
+        x = torch.from_numpy(_train_inputs(np.random.default_rng(SEED), 2, 64)[0]).cuda()
+        t.gen_apply(t.gen_ab, x.permute(0, 3, 1, 2).contiguous()).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        remat_lib._convs_policy = policy
+    return sorted(op for op in seen if "conv" in op)
+
+
+def phase_remat(smi, root: str, cycle_figures: tuple, train_figures: tuple) -> dict:
+    """Rematerialisation on the card (module docstring, phase 12).  Returns
+    the launch counts of its runs."""
+    from floodgan_tpu_torch.cli import train as cli_train
+    from floodgan_tpu_torch.train import remat as remat_lib
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+    from floodgan_tpu_torch.train.seg import SegTrainer
+
+    launches = _Launches()
+    zero, read, total = launches.zero, launches.read, launches.total
+    gib = 2.0 ** 30
+
+    conv_ops = _conv_ops_at_the_policy()
+    check(conv_ops == sorted(str(op) for op in remat_lib.CONV_OPS),
+          f"the convolution ops reaching the convs policy on the card: {conv_ops}, CONV_OPS "
+          f"{sorted(map(str, remat_lib.CONV_OPS))}")
+    say("remat", f"ops with 'conv' in their name that reach the convs policy (bf16 autocast, card): {conv_ops}")
+
+    # ---- AttentionGAN, each policy against the same trainer without remat ----
+    x, y = _train_inputs(np.random.default_rng(SEED + 7), BATCH, S)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    plain = _family_trainer("attentiongan", None, S, "bfloat16")
+    ref = [_losses(plain.train_step(x, y, LR, epoch=1, step=i)) for i in range(2)]
+    del plain
+    torch.cuda.empty_cache()
+    figures = {}
+    for policy in REMAT_POLICIES:
+        trainer = _family_trainer("attentiongan", None, S, "bfloat16", remat=True, remat_policy=policy)
+        nets = _family_nets(trainer)
+        start = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in nets}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        first = _losses(trainer.train_step(x, y, LR, epoch=1, step=0))
+        counts = read(f"one AttentionGAN step under remat {policy}", REMAT_CYCLE_LAUNCHES)
+        check(first == ref[0], f"{policy}: step-1 losses {first} differ from the plain step's {ref[0]}")
+        second = _losses(trainer.train_step(x, y, LR, epoch=1, step=1))
+        rel2 = max(abs(second[k] - ref[1][k]) / abs(ref[1][k]) for k in ref[1])
+        check(rel2 <= TOL_REMAT_STEP2, f"{policy}: step-2 losses {second} against {ref[1]}: {rel2}")
+        for i in range(2, 5):
+            last = _losses(trainer.train_step(x, y, LR, epoch=1, step=i))
+        check(all(np.isfinite(v) for v in last.values()), f"{policy}: non-finite losses after 5 steps: {last}")
+        for n, m in nets:
+            moved, weights, _, _ = _changed(m, start[n])
+            check(moved == weights, f"{policy} {n}: only {moved} of {weights} weight tensors changed in 5 steps")
+        ms, lo, hi = _timed_steps(lambda i: trainer.train_step(x, y, LR, epoch=2, step=i), REMAT_TIMED)
+        peak = torch.cuda.max_memory_allocated() / gib
+        figures[policy] = (ms, peak)
+        say("remat", f"AttentionGAN {S}^2 batch {BATCH} bf16 remat {policy}: one step launched {counts}; step-1 "
+                     f"losses equal the plain step's bit for bit; step-2 max rel diff {rel2:.3g} "
+                     f"(tol {TOL_REMAT_STEP2:g}); step ms median {ms:.3f} over {REMAT_TIMED} after 5 (min "
+                     f"{lo:.3f}, max {hi:.3f}), peak {peak:.3f} GiB, against no remat's {cycle_figures[0]:.3f} ms "
+                     f"and {cycle_figures[1]:.3f} GiB ({smi})")
+        del trainer, nets, start
+        torch.cuda.empty_cache()
+    del x, y
+
+    # ---- the xBD tile's native size under the policy with the least memory ----
+    least = min(figures, key=lambda p: figures[p][1])
+    xb, yb = _train_inputs(np.random.default_rng(SEED + 9), BATCH, REMAT_BIG)
+    xb, yb = torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda()
+    trainer = _family_trainer("attentiongan", None, REMAT_BIG, "bfloat16", remat=True, remat_policy=least)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    big = []
+    ms, lo, hi = _timed_steps(lambda i: big.append(_losses(trainer.train_step(xb, yb, LR, epoch=1, step=i))),
+                              REMAT_BIG_STEPS)
+    counts = read(f"{REMAT_BIG_STEPS} AttentionGAN {REMAT_BIG}^2 steps under {least}",
+                  {k: v * REMAT_BIG_STEPS for k, v in REMAT_CYCLE_LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated() / gib
+    check(all(np.isfinite(v) for m in big for v in m.values()), f"{REMAT_BIG}^2 losses {big}")
+    say("remat", f"AttentionGAN {REMAT_BIG}^2 batch {BATCH} bf16 remat {least} (the least peak at {S}^2): "
+                 f"{REMAT_BIG_STEPS} steps launched {counts}, finite losses {json.dumps(big[-1])}; step ms median "
+                 f"{ms:.3f} (min {lo:.3f}, max {hi:.3f}; the first compiles nothing but allocates), "
+                 f"peak {peak:.3f} GiB ({smi})")
+    del trainer, xb, yb
+    torch.cuda.empty_cache()
+
+    # ---- PairedAttention under the paired policies ----
+    x, y = _train_inputs(np.random.default_rng(SEED + 3), BATCH, S)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    for policy in ("boundaries", "full"):
+        trainer = PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED, remat=True,
+                                remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        trainer.train_step(x, y, LR)
+        counts = read(f"one PairedAttention step under remat {policy}", REMAT_PAIRED_LAUNCHES)
+        for _ in range(4):
+            last = _losses(trainer.train_step(x, y, LR))
+        check(all(np.isfinite(v) for v in last.values()), f"paired {policy}: losses {last}")
+        ms, lo, hi = _timed_steps(lambda i: trainer.train_step(x, y, LR), REMAT_TIMED)
+        peak = torch.cuda.max_memory_allocated() / gib
+        say("remat", f"PairedAttention {S}^2 batch {BATCH} bf16 remat {policy}: one step launched {counts}; "
+                     f"step ms median {ms:.3f} over {REMAT_TIMED} after 5 (min {lo:.3f}, max {hi:.3f}), peak "
+                     f"{peak:.3f} GiB, against [train]'s {train_figures[0]:.3f} ms and {train_figures[1]:.3f} GiB "
+                     f"({smi})")
+        del trainer
+        torch.cuda.empty_cache()
+    del x, y
+
+    # ---- the U-Net at the xBD tile's size, batch 8, f32, with remat ----
+    r = np.random.default_rng(SEED + 10)
+    images = torch.from_numpy(r.random((BATCH, REMAT_BIG, REMAT_BIG, 3), dtype=np.float32)).cuda()
+    masks = torch.from_numpy((r.random((BATCH, REMAT_BIG, REMAT_BIG, 1)) > 0.5).astype(np.float32)).cuda()
+    seg = SegTrainer(compute_dtype="float32", remat=True, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    first = _losses(seg.train_step(images, masks, SEG_LR))
+    read("one U-Net step under remat", NO_LAUNCHES)
+    ms, lo, hi = _timed_steps(lambda i: seg.train_step(images, masks, SEG_LR), SEG_REMAT_STEPS)
+    peak = torch.cuda.max_memory_allocated() / gib
+    check(np.isfinite(first["loss"]), f"U-Net loss {first}")
+    say("remat", f"U-Net {REMAT_BIG}^2 batch {BATCH} f32 remat (floodgan_tpu/cli/segment.py's case): first loss "
+                 f"{first['loss']:.6f}; step ms median {ms:.3f} over {SEG_REMAT_STEPS} after 1 (min {lo:.3f}, "
+                 f"max {hi:.3f}), peak {peak:.3f} GiB; [eval]'s seg step is batch 1 ({smi})")
+    del seg, images, masks
+    torch.cuda.empty_cache()
+
+    # ---- the training CLI's --remat on [cli]'s tiles ----
+    n_train = 2 * dict(CLI_SPLITS)["train"]
+    steps = -(-n_train // BATCH)
+    zero()
+    t0 = time.perf_counter()
+    model = cli_train.main(["--model=PairedAttention", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
+                            f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
+                            f"--batch_size={BATCH}", "--compute_dtype=bfloat16", "--num_epochs=1", "--remat"])
+    wall = time.perf_counter() - t0
+    counts = read(f"the training CLI's {steps} --remat steps",
+                  {k: v * steps for k, v in REMAT_PAIRED_LAUNCHES.items()})
+    check(model.trainer.remat and model.trainer.remat_policy == "boundaries"
+          and all(len(v) == 1 and np.isfinite(v[0]) for v in model.all_losses.values()),
+          f"--remat CLI: {model.trainer.remat_policy} {model.all_losses}")
+    say("remat", f"python -m floodgan_tpu_torch.cli.train --model=PairedAttention --remat ({CLI_TILE}^2 tiles "
+                 f"resized to {S}^2, batch {BATCH}, bf16, 1 epoch of {steps} steps, policy boundaries): "
+                 f"{wall:.2f} s with set-up; launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+class _CheckedMesh:
+    """A ``DataMesh`` that holds each collective of a world-size-1 run to
+    the identity, bit for bit, and brackets the gradient all-reduces with
+    CUDA events."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+        self.brackets, self.calls, self.changed = [], {}, []
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
+
+    def _count(self, what: str) -> None:
+        self.calls[what] = self.calls.get(what, 0) + 1
+
+    def all_reduce_grads_(self, params):
+        params = list(params)
+        before = [p.grad.clone() for p in params if p.grad is not None]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        self._mesh.all_reduce_grads_(params)
+        end.record()
+        self.brackets.append((start, end))
+        after = [p.grad for p in params if p.grad is not None]
+        if not all(torch.equal(a, b) for a, b in zip(before, after)):
+            self.changed.append("all_reduce_grads_")
+        self._count("all_reduce_grads_")
+
+    def all_reduce_sum_(self, t):
+        before = t.clone()
+        self._mesh.all_reduce_sum_(t)
+        if not torch.equal(before, t):
+            self.changed.append("all_reduce_sum_")
+        self._count("all_reduce_sum_")
+        return t
+
+    def mean(self, values):
+        out = self._mesh.mean(values)
+        if any(not torch.equal(out[k], values[k].float()) for k in values):
+            self.changed.append("mean")
+        self._count("mean")
+        return out
+
+    def all_gather(self, t):
+        out = self._mesh.all_gather(t)
+        if not torch.equal(out, t):
+            self.changed.append("all_gather")
+        self._count("all_gather")
+        return out
+
+
+def _dp_run(make, x, y) -> tuple:
+    """DP_STEPS steps of ``make()``'s trainer: (the losses of each, the
+    parameters after, the launches, the trainer)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    trainer = make()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    losses = [_losses(trainer.train_step(x, y, LR, epoch=1, step=i)) for i in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    params = {f"{n}.{k}": p.detach().clone() for n, m in _family_nets(trainer) for k, p in m.named_parameters()}
+    return losses, params, counts, trainer
+
+
+def phase_dp(smi) -> dict:
+    """The data-parallel path at world size 1 (module docstring, phase 13).
+    Returns the launch counts of its runs through the mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from floodgan_tpu_torch.ckpt.sharded import load_checkpoint_sharded, save_checkpoint_sharded
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.parallel import mesh as mesh_lib
+    from floodgan_tpu_torch.train.cycle import CycleTrainer
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+    from floodgan_tpu_torch.utils.jax_params import cycle_state_to_jax, load_cycle_state
+
+    total = {k: 0 for k in kernels.LAUNCHES}
+    mesh_lib.init_process_group(1, 0, "cuda", mesh_lib.free_port(), timeout_s=300)
+    try:
+        x, y = _train_inputs(np.random.default_rng(SEED + 11), BATCH, S)
+        x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        makers = {
+            "pix2pix": lambda m: _family_trainer("pix2pix", None, S, "bfloat16", mesh=m),
+            "pairedattention": lambda m: PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED,
+                                                       mesh=m),
+            "attentiongan": lambda m: _family_trainer("attentiongan", None, S, "bfloat16", mesh=m),
+        }
+        cycle_trainer = None
+        for name, make in makers.items():
+            plain_losses, plain_params, plain_counts, _ = _dp_run(lambda: make(None), x, y)
+            again_losses, again_params, _, _ = _dp_run(lambda: make(None), x, y)
+            plain_spread = [k for k in plain_params if not torch.equal(plain_params[k], again_params[k])]
+            deterministic = again_losses == plain_losses and not plain_spread
+            del again_params
+            torch.cuda.empty_cache()
+            mesh = _CheckedMesh(mesh_lib.make_mesh(1))
+            dp_losses, dp_params, dp_counts, trainer = _dp_run(lambda: make(mesh), x, y)
+            torch.cuda.synchronize()
+            reduce_ms = sum(s.elapsed_time(e) for s, e in mesh.brackets) / DP_STEPS
+            for k in total:
+                total[k] += dp_counts[k]
+            check(not mesh.changed, f"{name}: world-size-1 collectives changed their input: {mesh.changed}")
+            check(dp_counts == plain_counts, f"{name}: launches {dp_counts} through the mesh, {plain_counts} plain")
+            check(dp_losses[0] == plain_losses[0], f"{name}: step-1 losses {dp_losses[0]} against {plain_losses[0]}")
+            differ = [k for k in plain_params if not torch.equal(plain_params[k], dp_params[k])]
+            if deterministic:
+                # Two plain runs agree bit for bit, so the mesh's run must too.
+                check(dp_losses == plain_losses and not differ,
+                      f"{name}: {len(differ)} parameters and losses {dp_losses} against {plain_losses}")
+                held = (f"two plain runs agree bit for bit, and the mesh's {DP_STEPS} steps equal them (losses and "
+                        f"all {len(plain_params)} parameter tensors)")
+            else:
+                # A reflect pad's backward accumulates with atomics, so two plain runs part after step 1.
+                rel = max(abs(dp_losses[1][k] - plain_losses[1][k]) / abs(plain_losses[1][k]) for k in plain_losses[1])
+                check(rel <= TOL_REMAT_STEP2, f"{name}: step-2 losses {dp_losses[1]} against {plain_losses[1]}")
+                held = (f"two plain runs differ in {len(plain_spread)} of {len(plain_params)} tensors after "
+                        f"{DP_STEPS} steps (their step-1 losses agree); the mesh's step-1 losses equal the plain "
+                        f"step's bit for bit, step-2 max rel diff {rel:.3g} (tol {TOL_REMAT_STEP2:g}), "
+                        f"{len(differ)} tensors differ")
+            say("dp", f"{name} {S}^2 batch {BATCH} bf16 on a world-size-1 NCCL mesh: {held}; every collective "
+                      f"returned its input bit for bit ({json.dumps(mesh.calls)}); launches {dp_counts} both ways; "
+                      f"gradient all-reduce {reduce_ms:.3f} ms a step ({smi})")
+            if name == "attentiongan":
+                cycle_trainer = trainer
+            del trainer, plain_params, dp_params
+            torch.cuda.empty_cache()
+
+        # ---- a .sharded directory written and read back ----
+        state = cycle_state_to_jax(cycle_trainer)
+        d = os.path.join(tempfile.mkdtemp(prefix="floodgan_dp_"), "attentiongan.sharded")
+        try:
+            t0 = time.perf_counter()
+            save_checkpoint_sharded(d, {"model": "attentiongan"}, state, 0, 1)
+            t1 = time.perf_counter()
+            meta, raw = load_checkpoint_sharded(d)
+            t2 = time.perf_counter()
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            again = CycleTrainer("attentiongan", 9, (S, S), compute_dtype="bfloat16", seed=SEED + 1)
+            load_cycle_state(again, raw)
+            a = {f"{n}.{k}": v for n, m in _family_nets(cycle_trainer) for k, v in m.state_dict().items()}
+            b = {f"{n}.{k}": v for n, m in _family_nets(again) for k, v in m.state_dict().items()}
+            same = all(torch.equal(a[k], b[k]) for k in a)
+            bufs = all(torch.equal(getattr(cycle_trainer, k).images, getattr(again, k).images)
+                       and getattr(cycle_trainer, k).count == getattr(again, k).count
+                       for k in ("pre_buffer", "post_buffer"))
+            check(meta == {"model": "attentiongan"} and same and bufs, "the .sharded round trip differs")
+            say("dp", f".sharded directory of the AttentionGAN state ({sorted(os.listdir(d))}, {size / 2**20:.1f} MiB): "
+                      f"saved in {t1 - t0:.2f} s, read in {t2 - t1:.2f} s, every parameter and both bf16 buffers "
+                      f"bit for bit")
+        finally:
+            shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_train_card_vs_cpu() -> None:
     from floodgan_tpu_torch.train.paired import PairedTrainer
 
@@ -1804,18 +2195,21 @@ def main() -> int:
     serve_counts = phase_requests(engine)
     del engine
     phase_card_vs_cpu(sd)
-    train_counts, step_rate = phase_train(smi)
+    train_counts, step_rate, train_figures = phase_train(smi)
     head_counts = phase_head(smi)
     root = tempfile.mkdtemp(prefix="floodgan_cli_")
     try:
         cli_counts, gan_ckpt, tests = phase_cli(smi, step_rate, root)
         eval_counts, seg_ckpt = phase_eval(smi, root, gan_ckpt, tests)
-        families_counts, family_ckpts = phase_families(smi, root, tests, step_rate)
+        families_counts, family_ckpts, family_figures = phase_families(smi, root, tests, step_rate)
+        remat_counts = phase_remat(smi, root, family_figures["attentiongan"], train_figures)
+        dp_counts = phase_dp(smi)
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
-            "eval": eval_counts, "families": families_counts, "compare": compare_counts}
+            "eval": eval_counts, "families": families_counts, "remat": remat_counts, "dp": dp_counts,
+            "compare": compare_counts}
     for k, row in rows.items():
         row["launches"] = sum(c[k] for c in runs.values())
     check(all(row["launches"] > 0 for row in rows.values()), f"a kernel of the main paths never ran: {runs}")

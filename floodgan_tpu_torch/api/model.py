@@ -17,7 +17,17 @@ train with ``train.paired.PairedTrainer``, CycleGAN and AttentionGAN with
   per epoch, the loss schema and per-epoch means in ``all_losses``, the
   verbose print format, and the metadata-encoded artifact names;
 - a SIGTERM during training becomes a ``KeyboardInterrupt`` that writes a
-  resume checkpoint first.
+  resume checkpoint first;
+- ``remat`` and ``remat_policy`` (None keeps each trainer's default:
+  ``"boundaries"`` for the paired step, ``"convs"`` for the cycle step);
+- data parallelism (floodgan_tpu/api/model.py:237-249, 362-369, 498-506):
+  with ``num_data_devices=N > 1`` the model runs in each of the N ranks of
+  a process group (``parallel.mesh``; ``cli.train`` starts them), each
+  rank trains on its stripe of every global batch of ``batch_size`` (which
+  N must divide; the remainder batch is dropped), the reported losses are
+  the global batch's means, rank 0 alone prints, plots and writes
+  artifacts, and checkpoints are ``.sharded`` directories
+  (``ckpt.sharded``), which resume like ``.ckpt`` files.
 
 Losses stay on the device within an epoch, with one transfer at its end.
 ``epoch_stats`` records, per epoch, its wall time, the seconds the loop
@@ -30,8 +40,8 @@ per image) and over the split's pixels (the flood-mask metrics of a
 segmentation U-Net), and writes the metric CSV in pandas' layout;
 ``plot_image`` renders one named image of the dataset.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-Queue 1 item: multi-device meshes (12) and ``remat`` (1).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md Queue 1
+item: the spatial axis of a mesh (``num_spatial_devices > 1``, item 12).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 from floodgan_tpu_torch.api import paths as pathlib_
 from floodgan_tpu_torch.ckpt import AsyncCheckpointer, load_checkpoint, save_checkpoint
 from floodgan_tpu_torch.ckpt.migrate import maybe_migrate
+from floodgan_tpu_torch.ckpt.sharded import is_sharded_checkpoint, load_checkpoint_sharded, save_checkpoint_sharded
 from floodgan_tpu_torch.core.config import (
     TOPOGRAPHY_CHANNELS,
     TrainConfig,
@@ -63,6 +74,8 @@ from floodgan_tpu_torch.data.pipeline import create_flood_dataset
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.eval.lpips import load_lpips
 from floodgan_tpu_torch.eval.metrics import MASK_METRICS, MS_SSIM_MIN_SIDE, MaskMetricsAccumulator
+from floodgan_tpu_torch.parallel.mesh import make_mesh
+from floodgan_tpu_torch.parallel.multihost import MultiHostBatchLoader
 from floodgan_tpu_torch.train.cycle import CycleTrainer
 from floodgan_tpu_torch.train.paired import PairedTrainer
 from floodgan_tpu_torch.utils.jax_params import (
@@ -123,12 +136,6 @@ def to_display_image(x) -> np.ndarray:
     return arr
 
 
-def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to floodgan_tpu_torch yet: it waits for ROADMAP.md Queue 1 item {item} ({name})"
-    )
-
-
 class Model:
     def __init__(
         self,
@@ -160,12 +167,16 @@ class Model:
         train_cfg: TrainConfig = TrainConfig(),
         device=None,
     ):
-        if verbose:
-            print(f"\nSetting up the {prettify_model_name(model)} model...")
+        # -- the data mesh (floodgan_tpu/api/model.py:237-249) --
+        self.mesh = None
         if num_data_devices > 1 or num_spatial_devices > 1:
-            raise _not_ported("multi-device training", 12, "Multi-GPU")
-        if remat:  # remat_policy only matters with remat
-            raise _not_ported("--remat", 1, "--remat")
+            if batch_size % num_data_devices:
+                raise ValueError("batch_size must be divisible by num_data_devices")
+            self.mesh = make_mesh(num_data_devices, spatial=num_spatial_devices, device=device)
+            device = self.mesh.device
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        if verbose and self.is_main:
+            print(f"\nSetting up the {prettify_model_name(model)} model...")
         if save_images_interval and importlib.util.find_spec("matplotlib") is None:
             raise RuntimeError("save_images_interval > 0 plots sample images, which needs matplotlib")
         self.device = resolve_device(device, "Model")
@@ -173,8 +184,11 @@ class Model:
         # -- config, possibly from a self-describing checkpoint --
         saved_meta = saved_state = None
         if load_pretrained_model:
-            pretrained_model_path = maybe_migrate(pretrained_model_path, "gan", resize=resize, crop=crop)
-            saved_meta, saved_state = load_checkpoint(pretrained_model_path)
+            if is_sharded_checkpoint(pretrained_model_path):
+                saved_meta, saved_state = load_checkpoint_sharded(pretrained_model_path)
+            else:
+                pretrained_model_path = maybe_migrate(pretrained_model_path, "gan", resize=resize, crop=crop)
+                saved_meta, saved_state = load_checkpoint(pretrained_model_path)
             self.model = saved_meta["model"]
             self.num_epochs = saved_meta["num_epochs"]
             self.topography = saved_meta["topography"]
@@ -187,7 +201,7 @@ class Model:
                 self.topography = None
             self.add_identity_loss = add_identity_loss
         _check_model(self.model)
-        self.verbose = verbose
+        self.verbose = verbose and self.is_main
         self.save_model_interval = save_model_interval
         self.save_images_interval = save_images_interval
         self.load_pretrained_model = load_pretrained_model
@@ -217,19 +231,26 @@ class Model:
             self.resize, self.crop, batch_size=self.batch_size,
             metadata_dir=self.metadata_dir, device=self.device,
         )
+        if self.mesh is not None:
+            # Each rank decodes its stripe; a remainder batch cannot split evenly.
+            loader = self.train_loader
+            self.train_loader = MultiHostBatchLoader(loader.dataset, loader.batch_size, self.mesh.rank,
+                                                     self.mesh.size, device=loader.device)
 
         # -- trainer and state (floodgan_tpu/api/model.py:206-216) --
+        # remat_policy=None keeps each trainer's default (floodgan_tpu/api/model.py:200-215).
         image_hw = self._image_hw()  # and the square-source guard
+        policy = {} if remat_policy is None else {"remat_policy": remat_policy}
         if self.model_is_cycle:
             self.trainer = CycleTrainer(
                 self.model, self.input_channels, image_hw, cfg=train_cfg,
                 add_identity_loss=self.add_identity_loss, compute_dtype=compute_dtype,
-                device=self.device, seed=seed,
+                remat=remat, device=self.device, seed=seed, mesh=self.mesh, **policy,
             )
         else:
             self.trainer = PairedTrainer(
                 self.model, self.input_channels, cfg=train_cfg, compute_dtype=compute_dtype,
-                device=self.device, seed=seed,
+                remat=remat, device=self.device, seed=seed, mesh=self.mesh, **policy,
             )
         if load_pretrained_model:
             self.starting_epoch = saved_meta["starting_epoch"]
@@ -358,7 +379,7 @@ class Model:
                 # Step s of epoch e draws from the (e, s) stream.
                 step_metrics.append(self.trainer.train_step(batch["input"], batch["output"], lr,
                                                             epoch=epoch, step=len(step_metrics)))
-                samples += batch["input"].shape[0]
+                samples += batch["input"].shape[0] * (1 if self.mesh is None else self.mesh.size)
 
             losses = self._initialise_loss_storage(overall=False)
             if step_metrics:
@@ -423,10 +444,13 @@ class Model:
             self.print_losses()
         if self.save_model_interval != 0 and epoch % self.save_model_interval == 0:
             self.save_checkpoint(epoch)
-        if self.save_images_interval != 0 and epoch % self.save_images_interval == 0:
+        if self.save_images_interval != 0 and epoch % self.save_images_interval == 0 and self.is_main:
             self.plot_sample_images(num_images=5, use_test_data=False)
 
     def save_checkpoint(self, epoch: int) -> str:
+        """The resume checkpoint of ``epoch``: a ``.ckpt`` file, or on a
+        mesh of more than one rank a ``.sharded`` directory, which every
+        rank writes its part of (floodgan_tpu/api/model.py:498-506)."""
         meta = {
             "model": self.model,
             "starting_epoch": epoch + 1,
@@ -436,8 +460,15 @@ class Model:
             "add_identity_loss": self.add_identity_loss,
         }
         model_path = self.create_path(save_type="model")
-        _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
         state = (cycle_state_to_jax if self.model_is_cycle else paired_state_to_jax)(self.trainer)  # host copies
+        if self.mesh is not None:
+            # The name carries a timestamp: every rank takes rank 0's.
+            model_path = self.mesh.broadcast_object(model_path + ".sharded")
+            if self.is_main:
+                _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
+            save_checkpoint_sharded(model_path, meta, state, self.mesh.rank, self.mesh.size)
+            return model_path
+        _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
         if self._async_ckpt is not None:
             self._async_ckpt.save(model_path, meta, state)
         else:

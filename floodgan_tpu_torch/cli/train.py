@@ -10,6 +10,13 @@
 It trains any of the four families (Pix2Pix and PairedAttention with the
 paired step, CycleGAN and AttentionGAN with the cycle step) on the card
 unless ``--device cpu`` is given.
+
+``--remat [--remat_policy P]`` recomputes the generator reads in the
+backward.  ``--num_data_devices N`` trains data-parallel on N cards of
+this host: the command starts N processes, one per card, in one NCCL group
+over localhost (gloo processes with ``--device cpu``), and fails as soon as
+one of them does.  Started by torchrun (``WORLD_SIZE`` and ``RANK`` set),
+it joins that group instead.  ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -37,33 +44,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pretrained_model_path", default=None, help="Checkpoint file to resume from (required with --load_pretrained_model); a .ckpt of either package, or a reference .pth.tar")
     parser.add_argument("--add_identity_loss", action="store_true", default=False, help="Include the 5x identity L1 term in the cycle objective (cycle models only)")
     parser.add_argument("--seed", type=int, default=47, help="Seed for parameter initialisation (per-epoch data order is keyed by the epoch number alone)")
-    parser.add_argument("--batch_size", type=int, default=1, help="Per-step batch size (the reference hardcodes 1)")
-    parser.add_argument("--num_data_devices", type=int, default=1, help="Data-parallel size (not ported yet: must be 1)")
-    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial-parallel size (not ported yet: must be 1)")
+    parser.add_argument("--batch_size", type=int, default=1, help="Per-step global batch size (the reference hardcodes 1)")
+    parser.add_argument("--num_data_devices", type=int, default=1, help="Data-parallel mesh size (shards the batch over cards, one process per card)")
+    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial mesh size (shards the image height axis over cards; total cards = data x spatial; not ported yet: must be 1)")
     parser.add_argument("--metadata_dir", default=None, help="Directory holding dataset_split.csv (defaults to ./metadata like the reference)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"], help="Activation/flop dtype (f32 master params either way)")
-    parser.add_argument("--remat", action="store_true", default=False, help="Rematerialise generator activations (not ported yet)")
-    parser.add_argument("--remat_policy", default=None, choices=["convs", "boundaries", "full"], help="With --remat: what to save across the backward (not ported yet)")
+    parser.add_argument("--remat", action="store_true", default=False, help="Rematerialise generator activations (lets cycle models train at 512^2 with batch > 1 in 16GB HBM)")
+    parser.add_argument("--remat_policy", default=None, choices=["convs", "boundaries", "full"], help="With --remat: what to save across the backward. Default = the trainer's measured default (paired: boundaries, cycle: convs). 'full' saves nothing (replays the whole forward) — the high-resolution/big-batch choice (1024^2 batch 8 on one 16GB chip)")
     parser.add_argument("--async_checkpoint", action="store_true", default=False, help="Write checkpoints on a background thread (training continues while the file lands)")
     parser.add_argument("--profile_dir", default=None, help="Write a torch.profiler Chrome trace of training into this directory")
     parser.add_argument("--device", default=None, help="Where to train: the card by default (cuda); 'cpu' runs the kernels' plain PyTorch versions")
     return parser
 
 
-def main(argv=None):
-    """Train as the flags say; returns the trained ``Model``."""
-    args = build_parser().parse_args(argv)
-    args.model = args.model.lower()
-
-    if args.load_pretrained_model:
-        if not args.pretrained_model_path:
-            raise ValueError("Provide a saved model.")
-        if not os.path.isfile(args.pretrained_model_path):
-            raise FileNotFoundError("Saved model not found. Check the path to the model.")
-
+def _train(args):
     from floodgan_tpu_torch.api import model as api_model
     from floodgan_tpu_torch.utils.profiling import trace
 
+    args = argparse.Namespace(**vars(args))
     profile_dir = args.profile_dir
     del args.profile_dir
     args.training_model = True
@@ -74,6 +72,44 @@ def main(argv=None):
         else:
             train_model.train_paired()
     return train_model
+
+
+def _rank_train(rank: int, device, args) -> None:
+    """One rank of ``--num_data_devices N``: the model on its own device."""
+    args.device = str(device)
+    _train(args)
+
+
+def main(argv=None):
+    """Train as the flags say; returns the trained ``Model`` (None when
+    the training ran in N started processes)."""
+    args = build_parser().parse_args(argv)
+    args.model = args.model.lower()
+
+    if args.load_pretrained_model:
+        if not args.pretrained_model_path:
+            raise ValueError("Provide a saved model.")
+        if not os.path.exists(args.pretrained_model_path):  # a .ckpt file or a .sharded directory
+            raise FileNotFoundError("Saved model not found. Check the path to the model.")
+
+    if args.num_data_devices > 1:
+        from floodgan_tpu_torch.parallel import mesh
+
+        if args.num_spatial_devices > 1:
+            mesh.make_mesh(args.num_data_devices, spatial=args.num_spatial_devices)  # raises: not ported
+        device_type = torch_device_type(args.device)
+        device = mesh.join_environment(device_type)
+        if device is not None:  # torchrun started this rank
+            args.device = str(device)
+            return _train(args)
+        mesh.spawn(_rank_train, args.num_data_devices, args=(args,), device_type=device_type)
+        return None
+    return _train(args)
+
+
+def torch_device_type(device) -> str:
+    """The device type ``--device`` names: the card by default."""
+    return "cuda" if device is None else device.split(":")[0]
 
 
 if __name__ == "__main__":

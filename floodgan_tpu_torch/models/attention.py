@@ -11,18 +11,23 @@ the first 9 masks plus the input RGB weighted by the background mask.
 ``forward`` returns (output (N,3,H,W), background_mask (N,H,W)).  The 25
 instance norms and the compose run in the hand-written kernels on the card
 (ops/kernels.py); ``tanh`` stays outside the compose kernel, as in the JAX
-module.
+module.  ``forward`` runs in seven segments whose ends are the JAX
+module's ``seg_boundary`` marks, for remat's ``"boundaries"`` policy.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
 
 from floodgan_tpu_torch.models.trunk import ResnetTrunk
 from floodgan_tpu_torch.ops import kernels, nn_ops
+
+
+def _call(fn: Callable, *args):
+    return fn(*args)
 
 
 def _deconv(cin: int, cout: int) -> nn.ConvTranspose2d:
@@ -46,19 +51,30 @@ class AttentionGenerator(nn.Module):
         self.deconv2_attention = _deconv(128, 64)
         self.deconv3_attention = nn.Conv2d(64, 10, 1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    # The segments between JAX's seg_boundary marks
+    # (floodgan_tpu/models/attention.py:83, 86, 121, 123, 170, 178).
+    def _encoder(self, x: torch.Tensor) -> torch.Tensor:
         in_act = nn_ops.instance_norm_act
         h = in_act(self.conv1(nn_ops.reflect_pad2d(x, 3)), relu=True)
         h = in_act(self.conv2(h), relu=True)
-        h = in_act(self.conv3(h), relu=True)
-        h = self.trunk(h)
+        return in_act(self.conv3(h), relu=True)
 
-        c = in_act(self.deconv1_content(h), relu=True)
-        c = in_act(self.deconv2_content(c), relu=True)
+    @staticmethod
+    def _up(deconv: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        return nn_ops.instance_norm_act(deconv(h), relu=True)
+
+    def _heads(self, c: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         content = torch.tanh(self.deconv3_content(nn_ops.reflect_pad2d(c, 3)))
+        return kernels.attention_compose(content, self.deconv3_attention(a), x[:, :3])
 
-        a = in_act(self.deconv1_attention(h), relu=True)
-        a = in_act(self.deconv2_attention(a), relu=True)
-        attn_logits = self.deconv3_attention(a)
-
-        return kernels.attention_compose(content, attn_logits, x[:, :3])
+    def forward(self, x: torch.Tensor, run: Callable = _call) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``run(segment, *inputs)`` calls each of the seven segments
+        (encoder, trunk, the two heads' deconv1 and deconv2, the head convs
+        with the compose); remat's ``"boundaries"`` passes a checkpoint."""
+        h = run(self._encoder, x)
+        h = run(self.trunk, h)
+        c = run(self._up, self.deconv1_content, h)
+        c = run(self._up, self.deconv2_content, c)
+        a = run(self._up, self.deconv1_attention, h)
+        a = run(self._up, self.deconv2_attention, a)
+        return run(self._heads, c, a, x)

@@ -7,7 +7,8 @@ a reflect-padded 7x7 RGB head with tanh.  Every norm is an affine-free
 instance norm, 23 per forward, each one ``nn_ops.instance_norm_act`` (K1
 forward, K2 backward on the card).  The JAX package's 2x2 phase-space
 stem and head re-express the same math for the TPU's layout and are not
-ported.
+ported.  ``forward`` runs in five segments whose ends are the JAX module's
+``seg_boundary`` marks, for remat's ``"boundaries"`` policy.
 
 Parameters register in the order of
 floodgan_tpu/utils/torch_import.py:cyclegan_generator_spec (conv_in,
@@ -15,6 +16,8 @@ down1, down2, the nine blocks' conv1 and conv2, up1, up2, conv_out).
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch import nn
@@ -25,6 +28,10 @@ from floodgan_tpu_torch.ops import nn_ops
 # floodgan_tpu/models/cyclegan.py:28-41: [reflect pad, conv3, IN, relu,
 # reflect pad, conv3, IN] + skip, the trunk's block.
 ResnetBlock = ResidualBlock
+
+
+def _call(fn: Callable, *args):
+    return fn(*args)
 
 
 def _deconv(cin: int, cout: int) -> nn.ConvTranspose2d:
@@ -42,13 +49,28 @@ class CycleGANGenerator(nn.Module):
         self.up2 = _deconv(128, 64)
         self.conv_out = nn.Conv2d(64, 3, 7)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) input stack -> (N, 3, H, W) image in [-1, 1]."""
+    # The segments between JAX's seg_boundary marks
+    # (floodgan_tpu/models/cyclegan.py:84, 86, 105, 116).
+    def _encoder(self, x: torch.Tensor) -> torch.Tensor:
         in_act = nn_ops.instance_norm_act
         h = in_act(self.conv_in(nn_ops.reflect_pad2d(x, 3)), relu=True)
         h = in_act(self.down1(h), relu=True)
-        h = in_act(self.down2(h), relu=True)
-        h = self.trunk(h)
-        h = in_act(self.up1(h), relu=True)
-        h = in_act(self.up2(h), relu=True)
+        return in_act(self.down2(h), relu=True)
+
+    @staticmethod
+    def _up(deconv: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        return nn_ops.instance_norm_act(deconv(h), relu=True)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.conv_out(nn_ops.reflect_pad2d(h, 3)))
+
+    def forward(self, x: torch.Tensor, run: Callable = _call) -> torch.Tensor:
+        """(N, C, H, W) input stack -> (N, 3, H, W) image in [-1, 1].
+        ``run(segment, *inputs)`` calls each of the five segments (encoder,
+        trunk, up1, up2, the RGB head); remat's ``"boundaries"`` passes a
+        checkpoint."""
+        h = run(self._encoder, x)
+        h = run(self.trunk, h)
+        h = run(self._up, self.up1, h)
+        h = run(self._up, self.up2, h)
+        return run(self._head, h)

@@ -10,7 +10,7 @@ scale ~ 1 + 0.02 N(0, 1) with zero bias (floodgan_tpu/models/layers.py:16-20,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -21,15 +21,37 @@ from floodgan_tpu_torch.ops import nn_ops
 class BatchNorm2d(nn.Module):
     """BatchNorm2d permanently in training mode (``nn_ops.batch_norm``),
     with ``weight`` (the JAX ``scale``) and ``bias`` and no running
-    statistics: they would never be read."""
+    statistics: they would never be read.  ``mesh`` (set by
+    ``set_data_mesh``) makes the statistics the global batch's."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_ops.batch_norm(x, self.weight, self.bias)
+        return nn_ops.batch_norm(x, self.weight, self.bias, mesh=self.mesh)
+
+
+def set_data_mesh(module: nn.Module, mesh) -> nn.Module:
+    """Every batch norm of ``module`` reads global-batch statistics over
+    ``mesh`` (a ``parallel.mesh.DataMesh``, or None for the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
+    return module
+
+
+class DropoutStream(NamedTuple):
+    """One step's dropout draws on a data mesh: every rank draws the global
+    batch's mask (``global_batch`` rows) from ``generator`` and keeps its
+    own rows from ``start`` on, so the ranks together draw what one process
+    draws for the whole batch."""
+
+    generator: torch.Generator
+    global_batch: int
+    start: int
 
 
 class Dropout(nn.Module):
@@ -44,13 +66,20 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """``generator``: a ``torch.Generator``, or a ``DropoutStream``."""
         if self.rate == 0.0:
             return x
         if generator is None:
             raise ValueError("dropout at a rate above 0 draws its mask from a generator the caller passes")
         keep = 1.0 - self.rate
-        kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if isinstance(generator, DropoutStream):
+            shape = (generator.global_batch, *x.shape[1:])
+            draws = torch.rand(shape, generator=generator.generator, device=x.device)
+            draws = draws[generator.start:generator.start + x.shape[0]]
+        else:
+            draws = torch.rand(x.shape, generator=generator, device=x.device)
+        kept = draws < keep
         return torch.where(kept, x / keep, torch.zeros_like(x))
 
 

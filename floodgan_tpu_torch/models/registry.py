@@ -9,7 +9,7 @@ PatchGAN uses batch norm, the others instance norm.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -66,11 +66,21 @@ def generator_returns_mask(model: str) -> bool:
     return _GENERATORS[_check_model(model)] is AttentionGenerator
 
 
+def generator_is_segmented(model: str) -> bool:
+    """The generators whose ``forward`` takes ``run``, segment by segment
+    between JAX's ``seg_boundary`` marks (Pix2Pix has none)."""
+    return _GENERATORS[_check_model(model)] is not Pix2PixGenerator
+
+
 def generator_image(generator: nn.Module, returns_mask: bool, x: torch.Tensor,
-                    dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    dropout_generator=None, run: Optional[Callable] = None) -> torch.Tensor:
     """The generator's output image alone, whatever the family: the
     attention generators also return a mask, which is dropped; Pix2Pix
-    draws its dropout from ``dropout_generator``."""
+    draws its dropout from ``dropout_generator``; a segmented generator
+    calls its segments through ``run`` when one is given."""
+    if run is not None:
+        out = generator(x, run=run)
+        return out[0] if returns_mask else out
     if returns_mask:
         return generator(x)[0]
     if dropout_generator is None:

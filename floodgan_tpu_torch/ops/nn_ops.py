@@ -6,7 +6,8 @@ layout and are not ported.  Convolutions are F.conv2d and
 F.conv_transpose2d (the twins of ``conv2d`` and ``conv_transpose2d``
 there); instance norm goes to the hand-written kernel on the card.  The
 U-Net's batch norm and max-pool were XLA ops there, not Pallas kernels,
-and go to cuDNN and ATen here.
+and are ATen ops here; batch norm spells out its statistics so that a
+data mesh can make them global.
 """
 
 from __future__ import annotations
@@ -42,16 +43,72 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * negative_slope)
 
 
-def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+class _BatchNorm(torch.autograd.Function):
+    """Training-mode batch norm whose statistics, and their gradient, a data
+    mesh can sum over the ranks.  Each rank's (count, mean, variance) comes
+    from one Welford pass; the global mean is the count-weighted mean of
+    the means, the global variance the ranks' variances about it (the
+    pairwise form of Chan et al.); ATen's inference-mode batch norm then
+    normalises with them in one pass.  The backward takes the two channel
+    sums (of g and of g * x̂) from ATen's batch-norm backward reduction,
+    sums them over the ranks, and forms dx from the global means.  Without
+    a mesh the same arithmetic runs with no sum over ranks.  Saves x and
+    the two statistics, as ATen's batch norm does."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, mesh):
+        work = torch.promote_types(x.dtype, torch.float32)
+        x32 = x.to(work)
+        count = x.numel() // x.shape[1]
+        var, mean = torch.var_mean(x32, dim=_BN_DIMS, correction=0)
+        mean_sum = mean * count
+        if mesh is not None:
+            mesh.all_reduce_sum_(mean_sum)
+        total = count * (1 if mesh is None else mesh.size)
+        global_mean = mean_sum / total
+        sq = (var + (mean - global_mean).square()) * count
+        if mesh is not None:
+            mesh.all_reduce_sum_(sq)
+        global_var = sq / total
+        y = F.batch_norm(x32, global_mean, global_var, scale.to(work), bias.to(work), training=False, eps=eps)
+        ctx.save_for_backward(x, global_mean, torch.rsqrt(global_var + eps), scale)
+        ctx.total, ctx.eps, ctx.mesh, ctx.bias_dtype = total, eps, mesh, bias.dtype
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, invstd, scale = ctx.saved_tensors
+        work = torch.promote_types(x.dtype, torch.float32)
+        x32, g32, scale32 = x.to(work), g.to(work).contiguous(), scale.to(work)
+        _, sum_gx, sum_g = torch.ops.aten.native_batch_norm_backward(
+            g32, x32, scale32, None, None, mean, invstd, True, ctx.eps, [False, True, True])
+        sums = torch.stack([sum_g, sum_gx])
+        if ctx.mesh is not None:
+            ctx.mesh.all_reduce_sum_(sums)
+        mean_g, mean_gx = (sums / ctx.total).unbind()
+        a = scale32 * invstd
+        # dx = a * (g - mean(g) - x̂ * mean(g * x̂)), with x̂ = (x - mean) * invstd.
+        dx = torch.addcmul((-a * mean_g).view(1, -1, 1, 1), x32 - mean.view(1, -1, 1, 1),
+                           (-a * invstd * mean_gx).view(1, -1, 1, 1))
+        dx.addcmul_(g32, a.view(1, -1, 1, 1))
+        return dx.to(x.dtype), sum_gx.to(scale.dtype), sum_g.to(ctx.bias_dtype), None, None
+
+
+_BN_DIMS = (0, 2, 3)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+               mesh=None) -> torch.Tensor:
     """BatchNorm2d in training mode, always: batch statistics over (N, H, W),
-    biased variance, no running statistics.  The reference never calls
-    ``.eval()``, so inference normalises with the batch's own statistics
-    too, and an image's result depends on the images beside it.  The
-    statistics and the normalisation run in f32 for a half-precision ``x``
-    (in ``x``'s own dtype otherwise); the result has ``x``'s dtype."""
-    work = torch.promote_types(x.dtype, torch.float32)
-    y = F.batch_norm(x.to(work), None, None, scale.to(work), bias.to(work), training=True, eps=eps)
-    return y.to(x.dtype)
+    biased variance, no running statistics.  The reference never calls ``.eval()``, so
+    inference normalises with the batch's own statistics too, and an
+    image's result depends on the images beside it.  The statistics and the
+    normalisation run in f32 for a half-precision ``x`` (in ``x``'s own
+    dtype otherwise); the result has ``x``'s dtype.  With a data ``mesh``
+    (``parallel.mesh.DataMesh``) the statistics are those of the global
+    batch, every rank's stripe, as GSPMD's batch norm over a sharded batch
+    computes them; the same arithmetic runs without one."""
+    return _BatchNorm.apply(x, scale, bias, eps, mesh)
 
 
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:

@@ -1,0 +1,76 @@
+"""Striped data loading for data-parallel ranks: the port of
+floodgan_tpu/parallel/multihost.py.
+
+Every rank computes the same seeded epoch plan (the shuffle is keyed by
+the epoch number alone, as in ``data.pipeline.BatchLoader``), so no
+coordination traffic is needed; each rank decodes only its contiguous
+stripe of every global batch and yields that stripe on its own card.
+With one rank this is ``BatchLoader`` with the remainder batch dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+from floodgan_tpu_torch.data.pipeline import Batch, BatchLoader
+
+
+def process_stripe(global_batch: int, process_index: int, process_count: int) -> tuple:
+    """Half-open [start, stop) sample range of ``process_index`` within a
+    global batch under contiguous striping, GSPMD's process-major order.
+    The batch must divide evenly."""
+    if global_batch % process_count:
+        raise ValueError(f"global batch {global_batch} must divide over {process_count} processes")
+    per = global_batch // process_count
+    return process_index * per, (process_index + 1) * per
+
+
+class MultiHostBatchLoader:
+    """Each rank's stripe of every global batch of ``dataset``, on
+    ``device``: ``{"input", "output", "names"}`` as ``BatchLoader`` yields
+    them, with ``batch_size // process_count`` samples and ``names``
+    covering the local stripe only.  Global batches always tile the ranks
+    (the remainder is dropped).  The stage counters are the local
+    loader's."""
+
+    drop_remainder = True
+
+    def __init__(self, dataset, batch_size: int, process_index: int = 0, process_count: int = 1, device=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.stripe = process_stripe(batch_size, process_index, process_count)
+        self._local = BatchLoader(dataset, batch_size=batch_size // process_count, device=device)
+        self.device = self._local.device
+        self._auto_epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def __getattr__(self, name):
+        if name in ("post_cache_hits", "post_cache_total", "stage_seconds"):
+            return getattr(self._local, name)
+        raise AttributeError(name)
+
+    def local_indices(self, epoch: int = 0) -> np.ndarray:
+        """This rank's samples of the epoch, global batch after global batch."""
+        n = len(self.dataset)
+        order = np.random.default_rng(epoch).permutation(n)
+        lo, hi = self.stripe
+        usable = (n // self.batch_size) * self.batch_size
+        return np.concatenate([order[s + lo:s + hi] for s in range(0, usable, self.batch_size)] or
+                              [np.zeros(0, np.int64)])
+
+    def epoch_iter(self, epoch: int = 0) -> Iterator[Batch]:
+        return self._local.iter_indices(self.local_indices(epoch))
+
+    def __iter__(self) -> Iterator[Batch]:
+        """Each plain iteration advances the shuffle epoch, in step on every
+        rank; ``epoch_iter(k)`` leaves the counter alone."""
+        epoch = self._auto_epoch
+        self._auto_epoch += 1
+        return self.epoch_iter(epoch)
+

@@ -25,6 +25,20 @@ master parameters, one autocast region per generator or D read, f32 at
 every boundary, TF32 off.  The buffers store ``compute_dtype`` (bf16 under
 bf16: the D casts its input to bf16 anyway).
 
+``remat=True`` recomputes each generator read in the backward
+(``train.remat``), the identity passes included: ``remat_policy="convs"``
+(the default) keeps the convolutions' outputs, ``"boundaries"`` the
+segment ends, ``"full"`` the read's input only.  Each checkpoint starts
+inside its read's autocast region.
+
+With a data ``mesh`` (``parallel.mesh.DataMesh``) each rank takes its
+stripe of the global batch; the gradients of each network are averaged
+over the ranks before Adam, and the losses returned are the global
+batch's means.  The buffers are replicated state updated with the global
+batch, as JAX's are: each rank gathers every rank's synthetics, runs the
+same draws and queries on them, and keeps its stripe of the result, so
+the buffers stay identical on every rank.
+
 The buffer's per-item draws (a uniform p and a slot) come from
 ``core.rng.epoch(epoch, step)`` on the host: the count is
 known there, so a step's decisions need no device sync and depend on
@@ -49,6 +63,8 @@ from floodgan_tpu_torch.models.registry import (
     generator_image,
     generator_returns_mask,
 )
+from floodgan_tpu_torch.parallel.mesh import mean_grads
+from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
 from floodgan_tpu_torch.train.paired import _DTYPES, to_nchw
@@ -108,8 +124,9 @@ class CycleTrainer:
     ``image_hw`` sizes the replay buffers.  The four networks are drawn by
     ``init_weights`` from ``core.rng.init(seed)`` in the
     order G_ab, G_ba, D_pre, D_post (the JAX package splits its init key in
-    that order).  ``device=None`` means the card, and raises when there is
-    none; pass ``device="cpu"`` to run the plain PyTorch versions.
+    that order).  ``device=None`` means the card (the mesh's card with a
+    ``mesh``), and raises when there is none; pass ``device="cpu"`` to run
+    the plain PyTorch versions.
     """
 
     def __init__(
@@ -120,9 +137,17 @@ class CycleTrainer:
         cfg: TrainConfig = TrainConfig(),
         add_identity_loss: bool = False,
         compute_dtype: str = "float32",
+        remat: bool = False,
+        remat_policy: str = "convs",
         device=None,
         seed: int = 47,
+        mesh=None,
     ):
+        self.remat = remat
+        self.remat_policy = remat_lib.check_policy(remat_policy, remat_lib.CYCLE_POLICIES)
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device, "CycleTrainer")
         model = _check_model(model)
         if not model_is_cycle(model):
@@ -144,6 +169,8 @@ class CycleTrainer:
             nets[name] = init_weights(build_discriminator(model, input_channels), draws)
         self.gen_ab, self.gen_ba = nets["gen_ab"].to(self.device), nets["gen_ba"].to(self.device)
         self.disc_post, self.disc_pre = nets["disc_post"].to(self.device), nets["disc_pre"].to(self.device)
+        if mesh is not None:
+            mesh.replicate_(self.gen_ab, self.gen_ba, self.disc_post, self.disc_pre)
         self.gen_params = list(self.gen_ab.parameters()) + list(self.gen_ba.parameters())
         self.gen_opt = adam(self.gen_params, cfg.adam_b1, cfg.adam_b2)
         self.disc_opt = adam(list(self.disc_post.parameters()) + list(self.disc_pre.parameters()),
@@ -159,10 +186,20 @@ class CycleTrainer:
             enabled=self.compute_dtype != torch.float32,
         )
 
+    def _gen_region(self, generator: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return generator_image(generator, self.returns_mask, x.to(self.compute_dtype))
+
     def gen_apply(self, generator: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """A generator's output image, f32 whatever the policy (NCHW)."""
+        """A generator's output image, f32 whatever the policy (NCHW),
+        rematerialised when the trainer says so."""
         with self._autocast():
-            out = generator_image(generator, self.returns_mask, x.to(self.compute_dtype))
+            if not self.remat:
+                out = self._gen_region(generator, x)
+            elif self.remat_policy == "boundaries":
+                out = generator_image(generator, self.returns_mask, x.to(self.compute_dtype),
+                                      run=remat_lib.recompute)
+            else:
+                out = remat_lib.recompute(self._gen_region, generator, x, policy=self.remat_policy)
         return out.float()
 
     def disc_apply(self, discriminator: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -211,13 +248,12 @@ class CycleTrainer:
                 losses["losses_identity_post"] = identity_post
                 losses["losses_identity_pre"] = identity_pre
             total.backward(inputs=self.gen_params)
+            mean_grads(self.mesh, self.gen_ab, self.gen_ba)
             apply_adam(self.gen_opt, lr)
 
             # ---- replay buffers ----
-            draws = rng.epoch(epoch, step)
+            buffered_pre, buffered_post = self._query_buffers(syn_pre_c.detach(), syn_post_c.detach(), epoch, step)
             b = real_pre.shape[0]
-            buffered_pre = self.pre_buffer.query_batch(syn_pre_c.detach(), self.pre_buffer.draw(b, draws))
-            buffered_post = self.post_buffer.query_batch(syn_post_c.detach(), self.post_buffer.draw(b, draws))
 
             # ---- discriminator update ----
             self.disc_opt.zero_grad(set_to_none=True)
@@ -227,6 +263,7 @@ class CycleTrainer:
             real_post_loss, syn_post_loss = lsgan_mse(pred_post[:b], 1.0), lsgan_mse(pred_post[b:], 0.0)
             ((real_pre_loss + syn_pre_loss) * cfg.disc_weight
              + (real_post_loss + syn_post_loss) * cfg.disc_weight).backward()
+            mean_grads(self.mesh, self.disc_post, self.disc_pre)
             apply_adam(self.disc_opt, lr)
 
         losses.update({
@@ -235,7 +272,23 @@ class CycleTrainer:
             "losses_discriminator_pre_synthetic": syn_pre_loss,
             "losses_discriminator_post_synthetic": syn_post_loss,
         })
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        return losses if self.mesh is None else self.mesh.mean(losses)
+
+    def _query_buffers(self, syn_pre: torch.Tensor, syn_post: torch.Tensor, epoch: int, step: int):
+        """The images each D reads beside the reals: each buffer queried
+        with the batch's detached synthetics and the (epoch, step) draws.
+        On a mesh the query runs on the gathered global batch on every
+        rank, which keeps its stripe."""
+        if self.mesh is not None:
+            syn_pre, syn_post = self.mesh.all_gather(syn_pre), self.mesh.all_gather(syn_post)
+        draws = rng.epoch(epoch, step)
+        b = syn_pre.shape[0]
+        pre = self.pre_buffer.query_batch(syn_pre, self.pre_buffer.draw(b, draws))
+        post = self.post_buffer.query_batch(syn_post, self.post_buffer.draw(b, draws))
+        if self.mesh is not None:
+            pre, post = self.mesh.shard_batch(pre), self.mesh.shard_batch(post)
+        return pre, post
 
     @torch.no_grad()
     def generate(self, input_stack, direction: str = "ab"):

@@ -32,8 +32,20 @@ draws from a fresh seed-47 generator on each call, the reference's
 synthetic and the real pairs separately: with batch statistics one 2B
 read would not be the same function.
 
-Rematerialisation (the JAX ``remat`` option) is not ported yet (ROADMAP.md
-Queue 1 item 1).
+``remat=True`` recomputes the generator read in the backward
+(``train.remat``): ``remat_policy="boundaries"`` (the default) one segment
+at a time between the generator's ``seg_boundary`` marks, ``"full"`` the
+whole read.  The checkpoint starts inside the read's autocast region, so
+the recompute runs under the same policy, and Pix2Pix's dropout generator
+is rewound at the start of the region, so the recompute draws the same
+masks.
+
+With a data ``mesh`` (``parallel.mesh.DataMesh``) each rank takes its
+stripe of the global batch: after each backward the network's gradients
+are averaged over the ranks before Adam, batch norm reads the global
+batch's statistics, Pix2Pix's dropout draws the global batch's masks and
+keeps its rows, and the losses returned are the global batch's means.
+The ranks then hold the same parameters step after step.
 """
 
 from __future__ import annotations
@@ -46,13 +58,16 @@ import torch
 from floodgan_tpu_torch.core.config import TrainConfig, _check_model, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.core import rng
-from floodgan_tpu_torch.models.layers import init_weights
+from floodgan_tpu_torch.models.layers import DropoutStream, init_weights, set_data_mesh
 from floodgan_tpu_torch.models.registry import (
     build_discriminator,
     build_generator,
     generator_image,
+    generator_is_segmented,
     generator_returns_mask,
 )
+from floodgan_tpu_torch.parallel.mesh import mean_grads
+from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
 
@@ -72,8 +87,9 @@ class PairedTrainer:
     The generator and the conditional D (``input_channels + 3`` channels)
     are drawn by ``init_weights`` from ``core.rng.init(seed)``,
     generator first, unless ``gen_params`` / ``disc_params`` (state dicts)
-    are given.  ``device=None`` means the card, and raises when there is
-    none; pass ``device="cpu"`` to run the plain PyTorch versions.
+    are given.  ``device=None`` means the card (the mesh's card with a
+    ``mesh``), and raises when there is none; pass ``device="cpu"`` to run
+    the plain PyTorch versions.
     """
 
     def __init__(
@@ -83,11 +99,19 @@ class PairedTrainer:
         cfg: TrainConfig = TrainConfig(),
         dropout_rate: float = 0.5,
         compute_dtype: str = "float32",
+        remat: bool = False,
+        remat_policy: str = "boundaries",
         device=None,
         seed: int = 47,
         gen_params: Optional[Mapping[str, torch.Tensor]] = None,
         disc_params: Optional[Mapping[str, torch.Tensor]] = None,
+        mesh=None,
     ):
+        self.remat = remat
+        self.remat_policy = remat_lib.check_policy(remat_policy, remat_lib.PAIRED_POLICIES)
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device, "PairedTrainer")
         model = _check_model(model)
         if model_is_cycle(model):
@@ -99,6 +123,7 @@ class PairedTrainer:
         self.input_channels = input_channels
         self.compute_dtype = _DTYPES[compute_dtype]
         self.returns_mask = generator_returns_mask(model)
+        self.segmented = generator_is_segmented(model)
         self.has_dropout = model == "pix2pix" and dropout_rate > 0
         generator = build_generator(model, input_channels, dropout_rate)
         discriminator = build_discriminator(model, input_channels + 3)
@@ -111,6 +136,10 @@ class PairedTrainer:
             discriminator.load_state_dict(disc_params)
         self.generator = generator.to(self.device)
         self.discriminator = discriminator.to(self.device)
+        if mesh is not None:
+            mesh.replicate_(self.generator, self.discriminator)
+            set_data_mesh(self.generator, mesh)
+            set_data_mesh(self.discriminator, mesh)
         self.gen_opt = adam(self.generator.parameters(), cfg.adam_b1, cfg.adam_b2)
         self.disc_opt = adam(self.discriminator.parameters(), cfg.adam_b1, cfg.adam_b2)
 
@@ -123,15 +152,32 @@ class PairedTrainer:
             enabled=self.compute_dtype != torch.float32,
         )
 
-    def dropout_generator(self, epoch: int, step: int) -> Optional[torch.Generator]:
+    def dropout_generator(self, epoch: int, step: int, local_batch: int = 0):
         """The generator of step ``step`` of epoch ``epoch``'s dropout masks
-        on the trainer's device (None without dropout)."""
-        return rng.epoch(epoch, step, self.device) if self.has_dropout else None
+        on the trainer's device (None without dropout); on a mesh, the
+        ``DropoutStream`` of this rank's ``local_batch`` rows."""
+        if not self.has_dropout:
+            return None
+        g = rng.epoch(epoch, step, self.device)
+        if self.mesh is None:
+            return g
+        return DropoutStream(g, local_batch * self.mesh.size, self.mesh.stripe(local_batch * self.mesh.size)[0])
 
-    def gen_apply(self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The generator's output image, f32 whatever the policy (NCHW)."""
+    def _gen_region(self, x: torch.Tensor, dropout_generator=None) -> torch.Tensor:
+        return generator_image(self.generator, self.returns_mask, x.to(self.compute_dtype), dropout_generator)
+
+    def gen_apply(self, x: torch.Tensor, dropout_generator=None) -> torch.Tensor:
+        """The generator's output image, f32 whatever the policy (NCHW),
+        rematerialised when the trainer says so."""
         with self._autocast():
-            out = generator_image(self.generator, self.returns_mask, x.to(self.compute_dtype), dropout_generator)
+            if not self.remat:
+                out = self._gen_region(x, dropout_generator)
+            elif self.remat_policy == "boundaries" and self.segmented:
+                out = generator_image(self.generator, self.returns_mask, x.to(self.compute_dtype),
+                                      run=remat_lib.recompute)
+            else:  # "full", and "boundaries" for a generator without marks
+                g = dropout_generator.generator if isinstance(dropout_generator, DropoutStream) else dropout_generator
+                out = remat_lib.recompute(remat_lib.replayable(self._gen_region, g), x, dropout_generator)
         return out.float()
 
     def disc_apply(self, x: torch.Tensor) -> torch.Tensor:
@@ -148,13 +194,14 @@ class PairedTrainer:
         x = self._nchw(input_stack)
         y = self._nchw(output_image)
         with full_f32():
-            synthetic = self.gen_apply(x, self.dropout_generator(epoch, step))
+            synthetic = self.gen_apply(x, self.dropout_generator(epoch, step, x.shape[0]))
 
             # ---- discriminator update ----
             self.disc_opt.zero_grad(set_to_none=True)
             loss_d_syn = lsgan_mse(self.disc_apply(torch.cat([x, synthetic.detach()], 1)), 0.0)
             loss_d_real = lsgan_mse(self.disc_apply(torch.cat([x, y], 1)), 1.0)
             ((loss_d_syn + loss_d_real) * cfg.disc_weight).backward()
+            mean_grads(self.mesh, self.discriminator)
             apply_adam(self.disc_opt, lr)
 
             # ---- generator update against the updated D ----
@@ -162,14 +209,16 @@ class PairedTrainer:
             loss_g_adv = lsgan_mse(self.disc_apply(torch.cat([x, synthetic], 1)), 1.0)
             loss_g_l1 = l1_loss(synthetic, y) * cfg.l1_weight
             (loss_g_adv + loss_g_l1).backward(inputs=list(self.generator.parameters()))
+            mean_grads(self.mesh, self.generator)
             apply_adam(self.gen_opt, lr)
 
-        return {
+        losses = {
             "losses_discriminator_real": loss_d_real.detach(),
             "losses_discriminator_synthetic": loss_d_syn.detach(),
             "losses_generator_synthetic": loss_g_adv.detach(),
             "l1_losses_generator_synthetic": loss_g_l1.detach(),
         }
+        return losses if self.mesh is None else self.mesh.mean(losses)
 
     @torch.no_grad()
     def generate(self, input_stack):
@@ -178,6 +227,13 @@ class PairedTrainer:
         out.  Pix2Pix's dropout draws from a fresh seed-47 generator, so
         every call with one input shape draws the same masks."""
         x = self._nchw(input_stack)
+        set_data_mesh(self.generator, None)  # inference reads its own batch's statistics
+        try:
+            return self._generate(x)
+        finally:
+            set_data_mesh(self.generator, self.mesh)
+
+    def _generate(self, x: torch.Tensor):
         with full_f32():
             if self.returns_mask:
                 out, mask = self.generator(x)

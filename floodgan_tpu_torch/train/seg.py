@@ -10,8 +10,11 @@ Images and masks are NHWC, numpy or tensors, as in the JAX package; the
 logits and masks that come back are NHWC too.  ``compute_dtype="float32"``
 is true f32 (TF32 off); ``"bfloat16"`` runs the forward in one autocast
 region, as ``PairedTrainer`` does, with f32 master weights, f32 batch-norm
-statistics and f32 logits.  Rematerialisation (the JAX ``remat`` option)
-waits for ROADMAP.md Queue 1 item 1.
+statistics and f32 logits.  ``remat=True`` recomputes the whole U-Net
+apply in the backward (one checkpoint inside the autocast region, JAX's
+``jax.checkpoint(self._apply)``): the skip-connected stem holds 64-channel
+full-resolution tensors through the whole decode, which the recompute
+trades for one more forward.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from floodgan_tpu_torch.models.layers import init_weights
 from floodgan_tpu_torch.models.unet import UNet
 from floodgan_tpu_torch.train.losses import bce_with_logits
 from floodgan_tpu_torch.train.optim import adam, apply_adam
+from floodgan_tpu_torch.train.remat import recompute
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,16 +48,12 @@ class SegTrainer:
 
     def __init__(self, cfg: TrainConfig = TrainConfig(), compute_dtype: str = "float32",
                  remat: bool = False, device=None, seed: int = 47):
-        if remat:
-            raise NotImplementedError(
-                "remat is not ported to floodgan_tpu_torch yet: it waits for ROADMAP.md Queue 1 item 1 "
-                "(Paired training slice, remat)"
-            )
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         self.device = resolve_device(device, "SegTrainer")
         self.cfg = cfg
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.remat = remat
         self.model = init_weights(UNet(), torch.Generator().manual_seed(seed)).to(self.device)
         self.opt = adam(self.model.parameters(), cfg.adam_b1, cfg.adam_b2)
         self.eval_batch_metrics = make_eval_batch_metrics(self.predict_mask)
@@ -62,12 +62,17 @@ class SegTrainer:
         t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a, np.float32))
         return t.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
 
-    def _apply(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW image -> f32 NCHW logits, under the compute policy."""
+    def _cast_apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x.to(self.compute_dtype))
+
+    def _apply(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """NCHW image -> f32 NCHW logits, under the compute policy; with
+        ``remat``, recomputed in the backward."""
         if self.compute_dtype == torch.float32:
-            return self.model(x)
+            return recompute(self.model, x) if remat else self.model(x)
         with torch.autocast(self.device.type, dtype=self.compute_dtype):
-            return self.model(x.to(self.compute_dtype)).float()
+            out = recompute(self._cast_apply, x) if remat else self._cast_apply(x)
+        return out.float()
 
     def train_step(self, image, true_mask, lr: float) -> Dict[str, torch.Tensor]:
         """One BCE + Adam step on an NHWC batch; returns ``loss`` and
@@ -76,7 +81,7 @@ class SegTrainer:
         x, t = self._nchw(image), self._nchw(true_mask)
         with full_f32():
             self.opt.zero_grad(set_to_none=True)
-            logits = self._apply(x)
+            logits = self._apply(x, self.remat)
             loss = bce_with_logits(logits, t)
             loss.backward()
             apply_adam(self.opt, lr)

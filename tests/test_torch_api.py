@@ -120,15 +120,20 @@ def test_plots_write_their_artifacts(runs):
 def test_not_ported_paths_name_their_roadmap_items(runs, tmp_path):
     kw = dict(data_path=runs["port_path"], metadata_dir=os.path.join(runs["port_path"], "metadata"),
               device="cpu", **KW)
-    for extra, item in ((dict(model="PairedAttention", num_data_devices=2), "item 12"),
-                        (dict(model="PairedAttention", remat=True), "item 1"),
-                        (dict(model="CycleGAN", remat=True), "item 1")):
-        with pytest.raises(NotImplementedError, match=item):
-            Model(**extra, **kw)
+    # Item 12's data axis is ported: N ranks are N processes, so one process alone refuses N = 2;
+    # its spatial axis still raises.
+    with pytest.raises(RuntimeError, match="one process per rank"):
+        Model(model="PairedAttention", num_data_devices=2, **{**kw, "batch_size": 2})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Model(model="PairedAttention", num_spatial_devices=2, **kw)
+    # Item 1 (remat) is ported: tests/test_torch_remat.py holds it.
+    for extra, policy in ((dict(model="PairedAttention", remat=True), "boundaries"),
+                          (dict(model="CycleGAN", remat=True), "convs")):
+        trainer = Model(**extra, **kw).trainer
+        assert trainer.remat and trainer.remat_policy == policy
     from floodgan_tpu_torch.api.segmentation import SegmentationModel
 
-    with pytest.raises(NotImplementedError, match="item 1"):  # calculate_metrics (item 6) is ported
-        SegmentationModel(remat=True, skip_data=True, verbose=False, device="cpu")
+    assert SegmentationModel(remat=True, skip_data=True, verbose=False, device="cpu").trainer.remat
 
 
 def test_model_without_device_needs_the_card(runs, monkeypatch):

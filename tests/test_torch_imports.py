@@ -34,7 +34,8 @@ def test_scan_covers_the_port():
         "data/splits.py", "data/pipeline.py", "api/paths.py", "api/model.py", "cli/train.py", "cli/predict.py",
         "models/unet.py", "train/seg.py", "eval/metrics.py", "eval/lpips.py", "api/segmentation.py",
         "cli/evaluate.py", "cli/segment.py", "utils/tables.py", "core/rng.py", "models/pix2pix.py",
-        "models/cyclegan.py", "train/cycle.py", "api/group.py", "cli/compare.py",
+        "models/cyclegan.py", "train/cycle.py", "api/group.py", "cli/compare.py", "train/remat.py",
+        "parallel/mesh.py", "parallel/multihost.py", "ckpt/sharded.py",
     )} | {"chip_smoke.py"} <= names
 
 
