@@ -9,7 +9,9 @@ content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
 64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
 evaluation with the segmentation U-Net, the other three families (Pix2Pix
 and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
-data-parallel path, and the comparison CLI.
+data-parallel path, the comparison CLI, the offline ETL with a training
+epoch on its dataset and the .pth.tar export, and serving under load (the
+serve bench and HTTP).
 It fails unless every phase passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
@@ -148,6 +150,36 @@ It fails unless every phase passes:
 15. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
               2, f32 (TF32 off) on the card and on the CPU (plain versions):
               step-1 and step-2 losses.
+16. etl     - the offline ETL (floodgan_tpu_torch.pre_processing) on raw
+              rasters written from the seed into a temporary directory: 20
+              image sets of one disaster at 1024^2 (a GeoTIFF pre-disaster
+              image with ModelPixelScale and ModelTiepoint, the post image, a
+              DEM with values below 0, flow, river, an RGBA OSM map, a cloud
+              mask).  create_metadata (each row's extent from the tags),
+              create_dataset_split_metadata (16/2/2 and 18 flipped copies),
+              then per image the renders, create_input_stack, apply_masks,
+              create_output and write_dataset_pair; one written stack read
+              back through the TIFF decoder holds the channel contract bit
+              for bit.  Then python -m floodgan_tpu_torch.cli.train through
+              its main() on that dataset (512^2, batch 8, bf16, 1 epoch: each
+              of its 4 steps launches K1 34, K2 34, K3 1, K4 1), the .ckpt
+              exported with utils.torch_export.export_gan_checkpoint and
+              migrated back with python -m floodgan_tpu_torch.ckpt.migrate:
+              parameters, Adam moments and counts bit for bit.  Prints the
+              seconds of each ETL stage, the epoch, the export and migrate.
+17. load    - python -m floodgan_tpu_torch.tools.serve_bench through its
+              main(): engine mode (batches 1 and 8, 20 iterations), then
+              --frontend at 1/8/32 clients x 20 requests (engine batch 8,
+              5 ms delay); every forward launches K1 25 times and K3 once,
+              nothing else.  Then serve_http over a ModelRepository of
+              [etl]'s .ckpt and a seeded CycleGAN engine: 8 client threads,
+              each 5 single-image .npy POSTs and one 4-image POST to
+              alternating models, every answer 200 and within TOL_HTTP of
+              engine.predict on the same image; GET /v1/models counts them;
+              then a burst of 24 POSTs against a max_pending=4 model: 200s
+              (each right) and 503s with "retry", nothing else.  Prints the
+              bench's lines, the HTTP round trip's p50/p99 and each model's
+              batch occupancy.
 
 The line before the verdict is one JSON "kernels" line.  The last line is
 {"ok": true, "device": {...}}.  Without a card, or without the package
@@ -277,6 +309,31 @@ REMAT_BIG_STEPS = 3
 SEG_REMAT_STEPS = 3        # the U-Net at REMAT_BIG, batch BATCH, f32 (floodgan_tpu/cli/segment.py:27)
 TOL_REMAT_STEP2 = 2e-3     # step-2 losses follow an Adam update (TOL_TRAIN_STEP2's reason)
 DP_STEPS = 2               # [dp]: steps compared bit for bit at world size 1
+# [etl]: raw rasters of one disaster at xBD's tile size, built into a
+# dataset by the offline ETL (an 80/10/10 split: 16/2/2, and 18 flipped
+# copies), then one epoch of the training CLI on it at [cli]'s settings.
+ETL_DISASTER = "hurricane-florence"
+ETL_IMAGES = 20
+ETL_TILE = 1024
+ETL_DEM = "01m"            # every tile's best DEM: render_dem clamps its negatives
+ETL_PIXEL_DEG = 2.7e-6     # about 0.3 m a pixel at 34 degrees north
+# [load]: the serve bench through its main() (engine mode, then the frontend
+# at 1/8/32 clients), then HTTP: HTTP_CLIENTS threads each sending
+# HTTP_SINGLE single-image .npy bodies and one HTTP_MULTI-image body to
+# alternating models, then a burst against a max_pending=BURST_PENDING model.
+LOAD_ITERS = 20
+LOAD_CLIENTS = (1, 8, 32)
+LOAD_REQUESTS = 20
+LOAD_DELAY_MS = 5.0
+HTTP_CLIENTS = 8
+HTTP_SINGLE = 5
+HTTP_MULTI = 4
+HTTP_POOL = 16             # distinct images the requests draw from
+BURST_CLIENTS = 24
+BURST_PENDING = 4
+# An answer through HTTP against engine.predict of the same image (f32, TF32
+# off): the batch it shared differs, and only per-sample work touches it.
+TOL_HTTP = 1e-5
 # The metric CSV's columns in the JAX package's order
 # (floodgan_tpu/api/model.py:614-619).
 JAX_METRIC_COLUMNS = (
@@ -2165,6 +2222,424 @@ def phase_dp(smi) -> dict:
     return total
 
 
+def _write_geotiff(path: str, array: np.ndarray, x_min: float, y_max: float, px_w: float, px_h: float) -> None:
+    """``array`` as a TIFF (the port's writer) with the two GeoTIFF tags
+    that ``tiff.geotransform`` reads appended: ModelPixelScale (33550,
+    (px_w, px_h, 0)) and ModelTiepoint (33922, raster (0, 0, 0) at model
+    (x_min, y_max, 0)), both doubles.  A new first IFD holds the old
+    entries and the two tags, after the file's bytes."""
+    import struct
+
+    from floodgan_tpu_torch.data import tiff
+
+    tiff.imwrite(path, array)
+    with open(path, "r+b") as f:
+        data = f.read()
+        (ifd,) = struct.unpack_from("<I", data, 4)
+        (n,) = struct.unpack_from("<H", data, ifd)
+        entries = data[ifd + 2:ifd + 2 + 12 * n]
+        start = len(data) + len(data) % 2
+        scale = struct.pack("<3d", px_w, px_h, 0.0)
+        tie = struct.pack("<6d", 0.0, 0.0, 0.0, x_min, y_max, 0.0)
+        entries += struct.pack("<HHII", 33550, 12, 3, start) + struct.pack("<HHII", 33922, 12, 6, start + 24)
+        f.write(b"\0" * (start - len(data)) + scale + tie + struct.pack("<H", n + 2) + entries + b"\0\0\0\0")
+        f.seek(4)
+        f.write(struct.pack("<I", start + 72))
+
+
+def _write_raw_rasters(raw: dict, images: list, rng) -> dict:
+    """The raw inputs of each image under ``raw``'s directories: the
+    pre-disaster GeoTIFF (uint8 RGB), the post-disaster image, a DEM in
+    metres (f32, some below 0), log flow accumulation (f32), river distance
+    and OSM map (uint8; the map RGBA) and a {0, 1} cloud mask.  Returns each
+    image's (x_min, y_max)."""
+    import os
+
+    from floodgan_tpu_torch.data import tiff
+
+    t = ETL_TILE
+    corners = {}
+    for i, image in enumerate(images):
+        x_min, y_max = -78.0 + 0.004 * (i % 5), 34.25 - 0.004 * (i // 5)
+        corners[image] = (x_min, y_max)
+        _write_geotiff(os.path.join(raw["pre"], f"{image}.tif"), rng.integers(0, 256, (t, t, 3), dtype=np.uint8),
+                       x_min, y_max, ETL_PIXEL_DEG, ETL_PIXEL_DEG)
+        tiff.imwrite(os.path.join(raw["post"], f"{image}.tif"), rng.integers(0, 256, (t, t, 3), dtype=np.uint8))
+        tiff.imwrite(os.path.join(raw["dem"], f"{image}.tif"), rng.normal(4.0, 3.0, (t, t)).astype(np.float32))
+        tiff.imwrite(os.path.join(raw["flow"], f"{image}.tif"), rng.uniform(0.0, 5.5, (t, t)).astype(np.float32))
+        tiff.imwrite(os.path.join(raw["river"], f"{image}.tif"), rng.integers(0, 256, (t, t), dtype=np.uint8))
+        tiff.imwrite(os.path.join(raw["osm"], f"{image}.tif"), rng.integers(0, 256, (t, t, 4), dtype=np.uint8))
+        tiff.imwrite(os.path.join(raw["cloud"], f"{image}.tif"), (rng.random((t, t)) > 0.1).astype(np.uint8))
+    return corners
+
+
+def _tree_differences(a, b, where="") -> list:
+    """The paths at which two state trees (as ``load_checkpoint`` reads
+    them) differ in keys, dtype, shape or any bit."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            return [where or "/"]
+        return [d for k in b for d in _tree_differences(a[k], b[k], f"{where}/{k}")]
+    x, y = (np.asarray(getattr(v, "bits", v)) for v in (a, b))
+    same = x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+    return [] if same else [where]
+
+
+def phase_etl(smi, root: str) -> tuple:
+    """The offline ETL, then a training epoch on its dataset, the export to
+    the reference's .pth.tar and the migration back (module docstring,
+    phase 16).  Returns the launch counts of its runs and the .ckpt."""
+    import os
+
+    from floodgan_tpu_torch.ckpt import load_checkpoint, migrate
+    from floodgan_tpu_torch.cli import train as cli_train
+    from floodgan_tpu_torch.data import tiff
+    from floodgan_tpu_torch.models.registry import build_discriminator, build_generator
+    from floodgan_tpu_torch.pre_processing import metadata, stack
+    from floodgan_tpu_torch.utils import torch_export
+
+    launches = _Launches()
+    base = os.path.join(root, "etl")
+    raw = {k: os.path.join(base, "raw", k) for k in ("pre", "post", "dem", "flow", "river", "osm", "cloud")}
+    for d in raw.values():
+        os.makedirs(d)
+    meta_dir, data_dir = os.path.join(base, "metadata"), os.path.join(base, "dataset")
+    os.makedirs(meta_dir)
+    images = [f"{ETL_DISASTER}_{i:08d}" for i in range(ETL_IMAGES)]
+    t0 = time.perf_counter()
+    corners = _write_raw_rasters(raw, images, np.random.default_rng(SEED + 20))
+    raw_s = time.perf_counter() - t0
+    raw_bytes = sum(os.path.getsize(os.path.join(d, f)) for d in raw.values() for f in os.listdir(d))
+
+    # ---- stage 1: metadata and the split ----
+    t0 = time.perf_counter()
+    extents = metadata.create_metadata(raw["pre"], os.path.join(meta_dir, "metadata.csv"))
+    t1 = time.perf_counter()
+    split = metadata.create_dataset_split_metadata([r["image"] for r in extents],
+                                                   {img: (ETL_DEM, ETL_DEM) for img in images},
+                                                   os.path.join(meta_dir, "dataset_split.csv"))
+    meta_s, split_s = t1 - t0, time.perf_counter() - t1
+    check([r["image"] for r in extents] == images, f"metadata rows {[r['image'] for r in extents]}")
+    span = ETL_TILE * ETL_PIXEL_DEG
+    for r in extents:
+        x_min, y_max = corners[r["image"]]
+        check((r["x_min"], r["y_max"], r["x_max"], r["y_min"], r["disaster"])
+              == (x_min, y_max, x_min + span, y_max - span, ETL_DISASTER), f"metadata row {r}")
+    counts = {}
+    for r in split:
+        counts[(r["version"], r["split"])] = counts.get((r["version"], r["split"]), 0) + 1
+    want = {("original", "train"): 16, ("original", "validation"): 2, ("original", "test"): 2,
+            ("flipped", "train"): 16, ("flipped", "validation"): 2}
+    check(counts == want, f"split counts {counts}, expected {want}")
+
+    # ---- stages 2-3: the stacks, masked, and the dataset pairs ----
+    read_s = stack_s = write_s = 0.0
+    for image in images:
+        t0 = time.perf_counter()
+        r = {k: tiff.imread(os.path.join(d, f"{image}.tif")) for k, d in raw.items()}
+        t1 = time.perf_counter()
+        x = stack.apply_masks(stack.create_input_stack(
+            r["pre"], stack.render_dem(r["dem"], ETL_DEM), stack.render_flow_accumulation(r["flow"]),
+            stack.render_river_distance(r["river"]), r["osm"]), r["cloud"])
+        y = stack.apply_masks(stack.create_output(r["post"]), r["cloud"])
+        t2 = time.perf_counter()
+        stack.write_dataset_pair(data_dir, image, ETL_DEM, x, y)
+        t3 = time.perf_counter()
+        read_s, stack_s, write_s = read_s + t1 - t0, stack_s + t2 - t1, write_s + t3 - t2
+    data_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(data_dir) for f in fs)
+
+    # The channel contract on one written stack, read back through the decoder.
+    r = {k: tiff.imread(os.path.join(d, f"{images[0]}.tif")) for k, d in raw.items()}
+    got = tiff.imread(os.path.join(data_dir, "dataset_input", f"{images[0]}_{ETL_DEM}.tif"))
+    check(got.shape == (ETL_TILE, ETL_TILE, 9) and got.dtype == np.float32, f"stack {got.shape} {got.dtype}")
+    m = r["cloud"].astype(np.float32)
+    dem = np.maximum(r["dem"], 0.0)
+    channels = {
+        "rgb": r["pre"].astype(np.float32) / 255.0 * m[:, :, None],
+        "dem": (dem - dem.min()) / 100.0 * m,
+        "flow": r["flow"] / 5.5 * m,
+        "river": r["river"].astype(np.float32) / 255.0 * m,
+        "map": r["osm"][:, :, :3].astype(np.float32) / 255.0 * m[:, :, None],
+    }
+    for name, want_c in channels.items():
+        check(np.array_equal(got[:, :, stack.CHANNELS[name]], want_c), f"stack channel {name} differs")
+    say("etl", f"{ETL_IMAGES} raw {ETL_TILE}^2 image sets of {ETL_DISASTER} (a GeoTIFF pre image, post image, "
+               f"DEM, flow, river, OSM map, cloud mask: {raw_bytes / 2**20:.0f} MiB) written in {raw_s:.2f} s")
+    say("etl", f"ETL seconds: metadata (GeoTIFF tags) {meta_s:.4f}, split {split_s:.4f}, raster reads "
+               f"{read_s:.3f}, stacks and masks {stack_s:.3f}, dataset writes {write_s:.3f} "
+               f"({data_bytes / 2**20:.0f} MiB); split {json.dumps({f'{v} {k}': n for (v, k), n in counts.items()})}; "
+               f"the channel contract held bit for bit on {images[0]}")
+
+    # ---- one epoch of the training CLI on the ETL's dataset ----
+    flags = ["--model=PairedAttention", "--topography=all", f"--dataset_subset={ETL_DISASTER}",
+             "--dataset_dem=best", f"--data_path={data_dir}", f"--metadata_dir={meta_dir}", f"--resize={S}",
+             f"--batch_size={BATCH}", "--compute_dtype=bfloat16", "--num_epochs=1", "--save_model_interval=1"]
+    steps = -(-want[("original", "train")] * 2 // BATCH)
+    launches.zero()
+    t0 = time.perf_counter()
+    trained = cli_train.main(flags)
+    epoch_s = time.perf_counter() - t0
+    launches.read(f"the epoch's {steps} steps", {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()})
+    check(all(len(v) == 1 and np.isfinite(v[0]) for v in trained.all_losses.values()),
+          f"epoch losses {trained.all_losses}")
+    (ckpt,) = [os.path.join(data_dir, "models", f) for f in os.listdir(os.path.join(data_dir, "models"))]
+    say("etl", f"python -m floodgan_tpu_torch.cli.train on the ETL's dataset ({S}^2, batch {BATCH}, bf16, 1 "
+               f"epoch of {steps} steps): {epoch_s:.2f} s, launches {launches.total}, losses "
+               f"{json.dumps({k: v[0] for k, v in trained.all_losses.items()})}")
+    del trained
+    torch.cuda.empty_cache()
+
+    # ---- export to the reference's .pth.tar, and the migrate CLI back ----
+    names = {"generator": [n for n, _ in build_generator("pairedattention", 9).named_parameters()],
+             "discriminator": [n for n, _ in build_discriminator("pairedattention", 12).named_parameters()]}
+    t0 = time.perf_counter()
+    pth = torch_export.export_gan_checkpoint(ckpt, os.path.join(base, "exported.pth.tar"), names)
+    t1 = time.perf_counter()
+    back = migrate.main(["gan", pth, os.path.join(base, "migrated.ckpt"), "--resize", str(S)])
+    t2 = time.perf_counter()
+    meta0, raw0 = load_checkpoint(ckpt)
+    meta1, raw1 = load_checkpoint(back)
+    keys = ("gen_params", "disc_params", "gen_opt", "disc_opt")
+    differ = [d for k in keys for d in _tree_differences(raw1[k], raw0[k], k)]
+    check(not differ and meta1 == meta0, f"export -> migrate differs at {differ[:5]} (meta {meta1 == meta0})")
+    count = int(np.asarray(raw0["gen_opt"]["count"]))
+    check(count == steps, f"the .ckpt's Adam count {count}, expected {steps}")
+    say("etl", f"export_gan_checkpoint {(t1 - t0) * 1e3:.1f} ms ({os.path.getsize(pth) / 2**20:.1f} MiB .pth.tar), "
+               f"python -m floodgan_tpu_torch.ckpt.migrate gan {(t2 - t1) * 1e3:.1f} ms: parameters, Adam moments "
+               f"and counts ({count}) of both networks bit for bit, meta equal ({smi})")
+    return launches.total, ckpt
+
+
+def _direct(engine, stacks: np.ndarray) -> np.ndarray:
+    """engine.predict of each image, in zero-padded batches of its shape."""
+    bs, out = engine.batch_size, []
+    for lo in range(0, len(stacks), bs):
+        chunk = stacks[lo:lo + bs]
+        pad = np.zeros((bs - len(chunk),) + engine.input_shape, np.float32)
+        out.append(engine.predict(np.concatenate([chunk, pad])).cpu().numpy()[:len(chunk)])
+    return np.concatenate(out)
+
+
+def _in_threads(fn, n: int, timeout: float = 600) -> None:
+    """``fn(i)`` on ``n`` threads released together; fails on any exception
+    or a thread still running after ``timeout``."""
+    errors, barrier = [], threading.Barrier(n)
+
+    def body(i):
+        try:
+            barrier.wait(timeout=timeout)
+            fn(i)
+        except Exception as e:  # reported below; the phase then fails
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    check(not errors and not any(t.is_alive() for t in threads), f"client threads failed: {errors[:3]}")
+
+
+def _served_batch_ms(engine, image: np.ndarray, runs: int = 5) -> dict:
+    """Host-clock medians of what the frontend's worker does in turn for a
+    batch holding one request (``BatchingFrontend._flush``): stack and
+    zero-pad on the host, the copy to the card, the forward, the copy back;
+    and the whole of ``engine.predict(batch).cpu().numpy()``, which the
+    worker runs after the stack.  Each call launches one forward."""
+    parts = {"stack and pad": [], "host to card": [], "forward": [], "card to host": [],
+             "predict and copy back": []}
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        batch = np.concatenate([np.stack([image]),
+                                np.zeros((engine.batch_size - 1,) + engine.input_shape, np.float32)])
+        t1 = time.perf_counter()
+        x = torch.from_numpy(batch).to(engine.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = engine.predict(x)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu().numpy()
+        t4 = time.perf_counter()
+        engine.predict(batch).cpu().numpy()
+        t5 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            parts[k].append(dt * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _http_post(url: str, arr: np.ndarray) -> tuple:
+    """(status, the answer's array or JSON, round-trip seconds) of one .npy
+    POST."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = np.load(io.BytesIO(r.read()))
+            return r.status, out, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def phase_load(smi, ckpt: str) -> dict:
+    """Serving under load: the serve bench through its main(), then HTTP
+    over a repository of two models (module docstring, phase 17).  Returns
+    the launch counts of its runs."""
+    import urllib.request
+
+    from floodgan_tpu_torch import serve
+    from floodgan_tpu_torch.models.layers import init_weights
+    from floodgan_tpu_torch.models.registry import build_generator
+    from floodgan_tpu_torch.tools import serve_bench
+
+    launches = _Launches()
+    closed = []
+
+    class Recording(serve.BatchingFrontend):
+        """The bench's frontend, its stats kept when it closes."""
+
+        def close(self):
+            super().close()
+            closed.append(self.stats())
+
+    saved = serve_bench.BatchingFrontend
+    serve_bench.BatchingFrontend = Recording
+    try:
+        launches.zero()
+        t0 = time.perf_counter()
+        engine_lines = serve_bench.main(["--model", "pairedattention", "--size", str(S), "--batches", "1", str(BATCH),
+                                         "--iters", str(LOAD_ITERS)])
+        engine_s = time.perf_counter() - t0
+        # Each engine: its warm-up at construction, benchmark()'s warm-up, LOAD_ITERS calls.
+        forwards = 2 * (2 + LOAD_ITERS)
+        launches.read(f"the engine bench's {forwards} forwards", {k: v * forwards for k, v in SERVE_LAUNCHES.items()})
+        launches.zero()
+        t0 = time.perf_counter()
+        frontend_lines = serve_bench.main(["--frontend", "--model", "pairedattention", "--size", str(S),
+                                           "--batches", str(BATCH), "--clients",
+                                           *map(str, LOAD_CLIENTS), "--requests_per_client", str(LOAD_REQUESTS),
+                                           "--max_delay_ms", str(LOAD_DELAY_MS)])
+        frontend_s = time.perf_counter() - t0
+        forwards = 1 + sum(st["batches"] for st in closed)  # the engine's warm-up, then every batch
+        launches.read(f"the frontend bench's {forwards} forwards", {k: v * forwards for k, v in SERVE_LAUNCHES.items()})
+    finally:
+        serve_bench.BatchingFrontend = saved
+    check([ln["metric"] for ln in engine_lines] == [f"pairedattention {S}^2 serve batch {b}" for b in (1, BATCH)]
+          and all(ln["latency_ms"] > 0 for ln in engine_lines), f"engine lines {engine_lines}")
+    check([ln["requests"] for ln in frontend_lines] == [n * LOAD_REQUESTS for n in LOAD_CLIENTS]
+          and [st["requests"] for st in closed] == [1 + n * LOAD_REQUESTS for n in LOAD_CLIENTS]
+          and all(0 < ln["mean_batch_occupancy"] <= 1 and 0 < ln["p50_ms"] <= ln["p99_ms"] for ln in frontend_lines),
+          f"frontend lines {frontend_lines}, stats {closed}")
+    for ln in engine_lines:
+        say("load", f"{ln['metric']}: {ln['latency_ms']} ms, {ln['images_per_sec']} images/s ({smi})")
+    for ln, st in zip(frontend_lines, closed):
+        say("load", f"{ln['metric']}: p50 {ln['p50_ms']} ms, p99 {ln['p99_ms']} ms, {ln['images_per_sec']} images/s, "
+                    f"occupancy {ln['mean_batch_occupancy']} over {st['batches']} batches ({smi})")
+    say("load", f"serve bench: engine mode {engine_s:.1f} s, frontend mode {frontend_s:.1f} s (set-ups included)")
+
+    # ---- HTTP: the ETL's .ckpt and a CycleGAN engine, then a burst ----
+    launches.zero()
+    repo = serve.ModelRepository()
+    repo.add_checkpoint("paired", ckpt, batch_size=BATCH, image_size=S)
+    g = init_weights(build_generator("cyclegan", 9), torch.Generator().manual_seed(SEED + 21))
+    repo.add("cycle", serve.InferenceEngine("cyclegan", g.state_dict(), "all", batch_size=BATCH, image_size=S))
+    repo.add("burst", serve.InferenceEngine.from_checkpoint(ckpt, batch_size=BATCH, image_size=S),
+             max_pending=BURST_PENDING)
+    pool = np.random.default_rng(SEED + 22).uniform(-1.0, 1.0, (HTTP_POOL, S, S, 9)).astype(np.float32)
+    engines = {name: repo.frontend(name).engine for name in ("paired", "cycle")}
+    want = {name: _direct(eng, pool) for name, eng in engines.items()}
+    parts = _served_batch_ms(engines["paired"], pool[0])
+    cycle_ms = engines["cycle"].benchmark(iters=5)["latency_ms"]  # a warm-up and 5 forwards
+    per_model = {"paired": _serve_launches("pairedattention"), "cycle": _serve_launches("cyclegan")}
+    direct = -(-HTTP_POOL // BATCH)
+    launches.read("three engines' warm-ups, the direct forwards and the served-batch breakdown's", {
+        k: per_model["paired"][k] * (2 + direct + 2 * 5) + per_model["cycle"][k] * (1 + direct + 6) for k in NO_LAUNCHES})
+
+    server = serve.serve_http(repo, host="127.0.0.1", port=0)
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}/v1/models"
+    lock = threading.Lock()
+    answers, single_s = [], []
+    try:
+        launches.zero()
+
+        def client(i):
+            for j in range(HTTP_SINGLE + 1):
+                name = ("paired", "cycle")[(i + j) % 2]
+                n = 1 if j < HTTP_SINGLE else HTTP_MULTI
+                idx = [(i * (HTTP_SINGLE + 1) + j + k) % HTTP_POOL for k in range(n)]
+                status, out, sec = _http_post(f"{base}/{name}:predict", pool[idx[0]] if n == 1 else pool[idx])
+                with lock:
+                    answers.append((name, idx, status, out))
+                    if n == 1:
+                        single_s.append(sec)
+
+        t0 = time.perf_counter()
+        _in_threads(client, HTTP_CLIENTS)
+        http_s = time.perf_counter() - t0
+        with urllib.request.urlopen(base, timeout=60) as r:
+            models = json.load(r)
+        bad = [(name, status) for name, _, status, _ in answers if status != 200]
+        check(not bad, f"HTTP answers other than 200: {bad[:5]}")
+        worst = max(float(np.abs(out.reshape((-1, S, S, 3)) - want[name][idx]).max())
+                    for name, idx, _, out in answers)
+        check(worst <= TOL_HTTP, f"HTTP answers differ from engine.predict by {worst} (tol {TOL_HTTP})")
+        sent = {name: sum(len(idx) for n, idx, _, _ in answers if n == name) for name in ("paired", "cycle")}
+        check({k: models[k]["requests"] for k in sent} == sent, f"GET /v1/models counted {models}, sent {sent}")
+
+        burst = []
+
+        def burst_client(i):
+            idx = [(i + k) % HTTP_POOL for k in range(1 + i % HTTP_MULTI)]
+            status, out, _ = _http_post(f"{base}/burst:predict", pool[idx])
+            with lock:
+                burst.append((idx, status, out))
+
+        _in_threads(burst_client, BURST_CLIENTS)
+        with urllib.request.urlopen(base, timeout=60) as r:
+            after = json.load(r)
+        statuses = [status for _, status, _ in burst]
+        check(set(statuses) <= {200, 503} and 200 in statuses and 503 in statuses,
+              f"burst statuses {statuses}: expected 200s and 503s only, some of each")
+        check(all(out["retry"] is True for _, status, out in burst if status == 503), "a 503 without retry")
+        worst_burst = max(float(np.abs(out - want["paired"][idx]).max()) for idx, status, out in burst if status == 200)
+        check(worst_burst <= TOL_HTTP, f"burst answers differ from engine.predict by {worst_burst}")
+        served = sum(len(idx) for idx, status, _ in burst if status == 200)
+        check(after["burst"]["requests"] == served, f"burst frontend counted {after['burst']['requests']}, served {served}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        repo.close()
+        server_thread.join(timeout=60)
+    batches = {name: after[name]["batches"] for name in after}
+    launches.read(f"HTTP's batches {batches}", {
+        k: per_model["paired"][k] * (batches["paired"] + batches["burst"]) + per_model["cycle"][k] * batches["cycle"]
+        for k in NO_LAUNCHES})
+    ms = np.sort(np.array(single_s)) * 1e3
+    say("load", f"one served batch of 1 request at batch {BATCH}, as the frontend's worker runs it (host clock, "
+                f"median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+                + f"; the forward is {parts['forward'] / (parts['stack and pad'] + parts['predict and copy back']):.3f}"
+                f" of the worker's batch (stack and pad, then predict and copy back); the CycleGAN "
+                f"engine's batch-{BATCH} forward {cycle_ms:.3f} ms ({smi})")
+    say("load", f"HTTP, {HTTP_CLIENTS} clients x ({HTTP_SINGLE} single-image + one {HTTP_MULTI}-image .npy POST) to "
+                f"alternating models in {http_s:.2f} s: all {len(answers)} answers 200, max |HTTP - engine.predict| "
+                f"{worst:.3g} (tol {TOL_HTTP:g}); single-image round trip p50 {np.percentile(ms, 50):.2f} ms, "
+                f"p99 {np.percentile(ms, 99):.2f} ms; GET /v1/models: " + ", ".join(
+                    f"{k} {models[k]['requests']} requests in {models[k]['batches']} batches, occupancy "
+                    f"{models[k]['mean_occupancy']:.3f}" for k in sent) + f" ({smi})")
+    say("load", f"burst of {BURST_CLIENTS} POSTs (1-{HTTP_MULTI} images) against max_pending={BURST_PENDING}: "
+                f"{statuses.count(200)} answered 200 (max diff {worst_burst:.3g}), {statuses.count(503)} refused 503 "
+                f"with retry; launches {launches.total}")
+    return launches.total
+
+
 def phase_train_card_vs_cpu() -> None:
     from floodgan_tpu_torch.train.paired import PairedTrainer
 
@@ -2205,11 +2680,13 @@ def main() -> int:
         remat_counts = phase_remat(smi, root, family_figures["attentiongan"], train_figures)
         dp_counts = phase_dp(smi)
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
+        etl_counts, etl_ckpt = phase_etl(smi, root)
+        load_counts = phase_load(smi, etl_ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
             "eval": eval_counts, "families": families_counts, "remat": remat_counts, "dp": dp_counts,
-            "compare": compare_counts}
+            "compare": compare_counts, "etl": etl_counts, "load": load_counts}
     for k, row in rows.items():
         row["launches"] = sum(c[k] for c in runs.values())
     check(all(row["launches"] > 0 for row in rows.values()), f"a kernel of the main paths never ran: {runs}")

@@ -15,10 +15,14 @@ the same positions.  The reference never saves its replay buffers: a cycle
 file gets empty f32 buffers (count 0) at the image size ``resize`` and
 ``crop`` give.  ``maybe_migrate`` converts such a file once into a
 ``.ckpt`` beside it.
+
+    python -m floodgan_tpu_torch.ckpt.migrate gan ref.pth.tar out.ckpt --resize 512 --crop 4
+    python -m floodgan_tpu_torch.ckpt.migrate seg ref.pth.tar out.ckpt
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Dict, List, Optional
 
@@ -181,3 +185,22 @@ def maybe_migrate(path: str, kind: str = "gan", resize: Optional[int] = 256, cro
         return out
     print(f"Reference (PyTorch) checkpoint detected - migrating to {out}")
     return migrate_seg(path, out) if kind == "seg" else migrate_gan(path, out, resize, crop)
+
+
+def main(argv=None) -> str:
+    """The migrate CLI (floodgan_tpu/utils/migrate.py:255-267); returns the
+    ``.ckpt`` written."""
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("kind", choices=["gan", "seg"])
+    p.add_argument("torch_checkpoint")
+    p.add_argument("output_checkpoint")
+    p.add_argument("--resize", type=int, default=256)
+    p.add_argument("--crop", type=int, default=None)
+    args = p.parse_args(argv)
+    if args.kind == "gan":
+        return migrate_gan(args.torch_checkpoint, args.output_checkpoint, args.resize, args.crop)
+    return migrate_seg(args.torch_checkpoint, args.output_checkpoint)
+
+
+if __name__ == "__main__":
+    main()

@@ -391,11 +391,14 @@ def serve_http(repo: ModelRepository, host: str = "127.0.0.1", port: int = 8000)
     shape, default 64), 503 with ``"retry": true`` when admission control
     refuses, 500 for a failed forward.
 
-    Returns the started ``ThreadingHTTPServer``; serve with
-    ``serve_forever()`` in the caller's thread or a background one.
+    Returns the started ``ThreadingHTTPServer`` (listening with the
+    kernel's largest backlog, not socketserver's 5, so that a burst of
+    clients is answered rather than reset); serve with ``serve_forever()``
+    in the caller's thread or a background one.
     """
     import io
     import json
+    import socket
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     class Handler(BaseHTTPRequestHandler):
@@ -463,4 +466,10 @@ def serve_http(repo: ModelRepository, host: str = "127.0.0.1", port: int = 8000)
             np.save(buf, out[0] if single else out)
             self._send(200, buf.getvalue(), "application/octet-stream")
 
-    return ThreadingHTTPServer((host, port), Handler)
+    class Server(ThreadingHTTPServer):
+        # socketserver listens with a backlog of 5: a burst of more clients
+        # connecting at once overflows the accept queue, and they see resets
+        # or time out.  Let the kernel's own cap (somaxconn) bound it.
+        request_queue_size = socket.SOMAXCONN
+
+    return Server((host, port), Handler)

@@ -1,7 +1,7 @@
 """Import guard: the port and chip_smoke.py import no JAX-stack module,
 nothing of the JAX package (only tests import both), no pandas or msgpack
-(the card's machine has neither), and matplotlib only inside the plot
-functions (``plot_*`` and ``compare_output_images``)."""
+(the card's machine has neither), and matplotlib and plotly only inside
+the plot functions (``plot_*`` and ``compare_output_images``)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "msgpack", "floodgan_tpu", "pandas"}
-PLOT_ONLY = {"matplotlib"}
+PLOT_ONLY = {"matplotlib", "plotly"}
 SCANNED = sorted((ROOT / "floodgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -35,7 +35,9 @@ def test_scan_covers_the_port():
         "models/unet.py", "train/seg.py", "eval/metrics.py", "eval/lpips.py", "api/segmentation.py",
         "cli/evaluate.py", "cli/segment.py", "utils/tables.py", "core/rng.py", "models/pix2pix.py",
         "models/cyclegan.py", "train/cycle.py", "api/group.py", "cli/compare.py", "train/remat.py",
-        "parallel/mesh.py", "parallel/multihost.py", "ckpt/sharded.py",
+        "parallel/mesh.py", "parallel/multihost.py", "ckpt/sharded.py", "pre_processing/__init__.py",
+        "pre_processing/metadata.py", "pre_processing/stack.py", "pre_processing/scripts.py",
+        "pre_processing/explore.py", "utils/torch_export.py", "tools/serve_bench.py",
     )} | {"chip_smoke.py"} <= names
 
 
@@ -78,3 +80,14 @@ def test_guard_allows_matplotlib_only_in_plot_functions(tmp_path):
     plots = plot_function_lines(src)
     assert [(line, line in plots) for line, m in imported_top_levels(src) if m in PLOT_ONLY] == [
         (2, True), (5, False), (8, True)]
+
+
+def test_guard_allows_plotly_only_in_plot_functions(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "def plot_extents_map():\n    import plotly.express as px\n\n"
+        "def summarize_dataset_split():\n    import plotly\n"
+    )
+    plots = plot_function_lines(src)
+    assert [(line, line in plots) for line, m in imported_top_levels(src) if m in PLOT_ONLY] == [
+        (2, True), (5, False)]
