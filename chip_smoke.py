@@ -9,7 +9,8 @@ content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
 64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
 evaluation with the segmentation U-Net, the other three families (Pix2Pix
 and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
-data-parallel path, the comparison CLI, the offline ETL with a training
+data-parallel path, the spatial axis (image height over 2 ranks), the
+comparison CLI, the offline ETL with a training
 epoch on its dataset and the .pth.tar export, and serving under load (the
 serve bench and HTTP).
 It fails unless every phase passes:
@@ -137,7 +138,26 @@ It fails unless every phase passes:
               accumulates with atomics), step 2 within TOL_REMAT_STEP2.  The gradient
               all-reduce's ms a step (CUDA events); a .sharded directory of
               the AttentionGAN state written and read back bit for bit.
-14. compare - python -m floodgan_tpu_torch.cli.compare --compare models
+14. spatial - the spatial axis of the mesh: the partial IN forms (K1s,
+              K1a, K2s, K2a) against their plain versions at every IN site
+              of one rank's bf16 S = 2 step (each plane split in rows as the
+              mesh splits it, the PatchGAN's 63-row level as 32 + 31), with
+              both halves' sums added and applied against fused K1/K2 on the
+              whole plane, timed against their bounds; the stem's and the
+              trunk's sites in f32.  check_devices refuses two NCCL ranks on
+              card 0, and NCCL's own refusal past it is recorded.  Then 2
+              gloo ranks on card 0 (halos and sums staged through the host),
+              PairedAttention at 512^2, global batch 8, bf16, D = 1, S = 2:
+              each rank's first step launches exactly SPATIAL_STEP_LAUNCHES
+              (K1s/K1a/K2s/K2a 34 each, K3 and K4 once, fused K1/K2 none),
+              losses against one process on the card from the same init
+              (TOL_SPATIAL_STEP1, TOL_SPATIAL_UPDATED), the ranks' parameters
+              equal bit for bit after 6 steps, then one step under remat
+              boundaries (SPATIAL_REMAT_LAUNCHES: the forward forms 59 times;
+              step 1 bit for bit against the plain step).  Prints each rank's
+              step time (one card, host-staged: not a measure of scaling),
+              the exchanges' share of an instrumented step and peak memory.
+15. compare - python -m floodgan_tpu_torch.cli.compare --compare models
               --calculate_metrics on [cli]'s epoch-3 PairedAttention .ckpt
               and [families]' three, with [eval]'s seg .ckpt, on [cli]'s 8
               validation images at 512^2 (batch 1, LPIPS on the fallback
@@ -147,10 +167,10 @@ It fails unless every phase passes:
               launches K1 73 times and K3 twice, nothing else.  Prints the
               wall time and each model's mean Inference.  Then --compare two
               on the Pix2Pix and CycleGAN files.
-15. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
+16. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
               2, f32 (TF32 off) on the card and on the CPU (plain versions):
               step-1 and step-2 losses.
-16. etl     - the offline ETL (floodgan_tpu_torch.pre_processing) on raw
+17. etl     - the offline ETL (floodgan_tpu_torch.pre_processing) on raw
               rasters written from the seed into a temporary directory: 20
               image sets of one disaster at 1024^2 (a GeoTIFF pre-disaster
               image with ModelPixelScale and ModelTiepoint, the post image, a
@@ -167,7 +187,7 @@ It fails unless every phase passes:
               migrated back with python -m floodgan_tpu_torch.ckpt.migrate:
               parameters, Adam moments and counts bit for bit.  Prints the
               seconds of each ETL stage, the epoch, the export and migrate.
-17. load    - python -m floodgan_tpu_torch.tools.serve_bench through its
+18. load    - python -m floodgan_tpu_torch.tools.serve_bench through its
               main(): engine mode (batches 1 and 8, 20 iterations), then
               --frontend at 1/8/32 clients x 20 requests (engine batch 8,
               5 ms delay); every forward launches K1 25 times and K3 once,
@@ -226,8 +246,11 @@ D_SITES = (
 )
 D_READS = 3
 LR = 2e-4
-TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1, "copy": 0}
-SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0, "copy": 0}
+# The partial IN forms run only on the spatial axis ([spatial]); every other
+# path launches none of them.
+NO_PARTIAL = {"in_stats": 0, "in_apply": 0, "in_bwd_stats": 0, "in_bwd_apply": 0}
+TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL}
+SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
 COPY_SHAPE = (BATCH, S + 6, S + 6, 64)  # the head's input: the reflect-padded ConvT output, NHWC
 HEAD_ITERS = 20
 # [head] check: the variants sum the 49*64 taps in other orders (rowsum adds
@@ -281,18 +304,18 @@ TOL_GOLDEN = 2e-5
 # PatchGAN reads of 3 IN sites (2 in the G loss, 2 concatenated in the D
 # update), each forward and backward; the attention generator one compose
 # per forward, each forward and backward.
-NO_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0}
+NO_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
 FAMILY_STEP_LAUNCHES = {
     "pix2pix": NO_LAUNCHES,
-    "attentiongan": {"in_act": 112, "in_bwd": 112, "compose": 4, "compose_bwd": 4, "copy": 0},
-    "attentiongan+identity": {"in_act": 162, "in_bwd": 162, "compose": 6, "compose_bwd": 6, "copy": 0},
-    "cyclegan": {"in_act": 104, "in_bwd": 104, "compose": 0, "compose_bwd": 0, "copy": 0},
+    "attentiongan": {"in_act": 112, "in_bwd": 112, "compose": 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL},
+    "attentiongan+identity": {"in_act": 162, "in_bwd": 162, "compose": 6, "compose_bwd": 6, "copy": 0, **NO_PARTIAL},
+    "cyclegan": {"in_act": 104, "in_bwd": 104, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL},
 }
 FAMILY_TIMED = 10
 FAMILY_CMP = {"pix2pix": 256, "cyclegan": 64, "attentiongan": 64}  # card against CPU, batch 2, f32
 FAMILIES = {"pix2pix": "Pix2Pix", "cyclegan": "CycleGAN", "attentiongan": "AttentionGAN"}
 # [compare]: the generator forwards of one image under --compare models.
-COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0}
+COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
 COMPARE_MODELS = ("PairedAttention", "Pix2Pix", "AttentionGAN", "CycleGAN")
 # [remat]: a recomputed generator read launches its forward kernels again
 # in the backward: 25 K1 and one K3 per attention-generator read, under every
@@ -301,14 +324,40 @@ COMPARE_MODELS = ("PairedAttention", "Pix2Pix", "AttentionGAN", "CycleGAN")
 # packs its saved inputs after its kernel ran.  4 reads a cycle step, 1 a
 # paired step; no backward kernel runs more often.
 REMAT_POLICIES = ("convs", "boundaries", "full")
-REMAT_CYCLE_LAUNCHES = {"in_act": 112 + 4 * 25, "in_bwd": 112, "compose": 4 + 4, "compose_bwd": 4, "copy": 0}
-REMAT_PAIRED_LAUNCHES = {"in_act": 34 + 25, "in_bwd": 34, "compose": 1 + 1, "compose_bwd": 1, "copy": 0}
+REMAT_CYCLE_LAUNCHES = {"in_act": 112 + 4 * 25, "in_bwd": 112, "compose": 4 + 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL}
+REMAT_PAIRED_LAUNCHES = {"in_act": 34 + 25, "in_bwd": 34, "compose": 1 + 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL}
 REMAT_TIMED = 10
 REMAT_BIG = 2 * S          # the xBD tile's native size
 REMAT_BIG_STEPS = 3
 SEG_REMAT_STEPS = 3        # the U-Net at REMAT_BIG, batch BATCH, f32 (floodgan_tpu/cli/segment.py:27)
 TOL_REMAT_STEP2 = 2e-3     # step-2 losses follow an Adam update (TOL_TRAIN_STEP2's reason)
 DP_STEPS = 2               # [dp]: steps compared bit for bit at world size 1
+# [spatial]: PairedAttention on the mesh's spatial axis, H over 2 ranks on
+# card 0 over gloo (NCCL refuses two ranks on one card).  One rank's step
+# launches, by the structure of the step: 34 IN sites (25 generator, 3
+# PatchGAN levels x 3 reads), each K1s and K1a forward and K2s and K2a
+# backward; the compose once each way; no fused K1/K2.  Under remat
+# boundaries the generator read's 25 forward sites and its compose run again.
+SPATIAL = 2
+SPATIAL_STEP_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 1, "compose_bwd": 1, "copy": 0,
+                         "in_stats": 34, "in_apply": 34, "in_bwd_stats": 34, "in_bwd_apply": 34}
+SPATIAL_REMAT_LAUNCHES = {**SPATIAL_STEP_LAUNCHES, "compose": 2, "in_stats": 34 + 25, "in_apply": 34 + 25}
+SPATIAL_TIMED = 3
+TOL_STATS = 1e-5           # K1s/K2s's sums against the plain version's, of the sums of |.|: another order
+# The ranks' losses against one process's.  Those that read no updated
+# parameter (step 1's D losses and L1): the shards' convolutions may take
+# other cuDNN algorithms and the IN sums are split in two, so a bf16
+# activation may round the other way; a mean of millions of such elements
+# stays within one bf16 ulp (2^-8 relative) of the other run's.
+TOL_SPATIAL_STEP1 = 2.0 ** -8
+# Those that read an updated parameter (step 1's G loss reads the updated
+# D; all of step 2): Adam's first update is about lr x sign(grad) for every
+# element, so each weight whose bf16 gradient takes the other sign in the
+# other run moves 2 x lr the other way.  A CPU rehearsal (bf16 autocast,
+# 64^2, batch 2) put the G adversarial loss 1.35e-2 apart at step 2.  The
+# exact equivalence is held on the CPU in f32 and float64
+# (tests/test_torch_spatial_step.py); this is a sanity bound.
+TOL_SPATIAL_UPDATED = 5e-2
 # [etl]: raw rasters of one disaster at xBD's tile size, built into a
 # dataset by the offline ETL (an 80/10/10 split: 16/2/2, and 18 flipped
 # copies), then one epoch of the training CLI on it at [cli]'s settings.
@@ -2222,6 +2271,332 @@ def phase_dp(smi) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- [spatial]
+
+def _plane_rows(height: int) -> tuple:
+    """Rank 0's and rank 1's rows of a plane of ``height`` rows at S = 2:
+    the mesh's split (the PatchGAN's 63-row level is 32 and 31)."""
+    top = -(-height // SPATIAL)
+    return top, height - top
+
+
+def _scaled_err(got, want, scale) -> float:
+    return float(((got.double() - want.double()).abs() / scale.double().clamp_min(1e-30)).max())
+
+
+def _partial_case(gen, label, shape, dtype, relu, has_res, slope, backward, timed=True):
+    """The partial forms at one IN site of the S = 2 step: ``shape`` is the
+    whole plane, split in rows as the mesh splits it.  K1s and K1a (K2s and
+    K2a with ``backward``), each against its plain version on rank 0's
+    rows; both halves' sums added, then the apply, against fused K1 (K2)
+    on the whole plane.  Returns {form: (ms, plain_ms, bound_ms, bound_by,
+    err)} at rank 0's rows (empty unless ``timed``)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    n, c, h, w = shape
+    x = _randn(shape, dtype, gen, mean=0.5)
+    other = _randn(shape, dtype, gen) if (has_res or backward) else None
+    if backward:
+        other, _ = _off_kink(x, other, relu)
+    top, _ = _plane_rows(h)
+    halves = [x[:, :, :top].contiguous(), x[:, :, top:].contiguous()]
+    parts = [None, None] if other is None else [other[:, :, :top].contiguous(), other[:, :, top:].contiguous()]
+    stats = sum(kernels.instance_norm_stats(p) for p in halves)
+    x0, o0 = halves[0], parts[0]
+    s0 = kernels.instance_norm_stats(x0)
+    x32 = x0.float()
+    scale = torch.stack([x32.abs().sum(dim=(2, 3)), (x32 * x32).sum(dim=(2, 3))], -1).reshape(-1)
+    plain_s0 = kernels.instance_norm_stats_plain(x0)
+    err_stats = _scaled_err(s0[:-1], plain_s0[:-1], scale)
+    abs_stats = float((s0[:-1] - plain_s0[:-1]).abs().max())
+    check(float(s0[-1]) == top and float(stats[-1]) == h, f"{label}: row counts {float(s0[-1])}, {float(stats[-1])}")
+    out = {}
+    if not backward:
+        res0 = o0 if has_res else None
+        got = kernels.instance_norm_apply(x0, stats, relu, res0, slope)
+        err_apply, ok = _close(got, kernels.instance_norm_apply_plain(x0, stats, relu, res0, slope), dtype, TOL_F32_IN)
+        whole = torch.cat([kernels.instance_norm_apply(p, stats, relu, q if has_res else None, slope)
+                           for p, q in zip(halves, parts)], 2)
+        err_whole, ok_whole = _close(whole, kernels.instance_norm_act_fwd(x, relu, other if has_res else None, slope),
+                                     dtype, TOL_F32_IN)
+        checks = {"in_stats": (abs_stats, err_stats <= TOL_STATS), "in_apply": (err_apply, ok)}
+        forms = {"in_stats": (lambda: kernels.instance_norm_stats(x0), lambda: kernels.instance_norm_stats_plain(x0),
+                              x0.numel() * x0.element_size() + 8 * n * c + 4, 3 * x0.numel()),
+                 "in_apply": (lambda: kernels.instance_norm_apply(x0, stats, relu, res0, slope),
+                              lambda: kernels.instance_norm_apply_plain(x0, stats, relu, res0, slope),
+                              x0.numel() * x0.element_size() * (3 if has_res else 2) + 8 * n * c,
+                              (4 + int(relu) + int(has_res)) * x0.numel())}
+        what = "K1s + K1a"
+    else:
+        gsums = sum(kernels.instance_norm_bwd_stats(p, q, stats, relu, slope) for p, q in zip(halves, parts))
+        g0 = kernels.instance_norm_bwd_stats(x0, o0, stats, relu, slope)
+        mean = (stats[:-1].view(n, c, 2)[..., 0] / (h * w)).view(n, c, 1, 1)
+        yh = (x32 - mean) * torch.rsqrt((stats[:-1].view(n, c, 2)[..., 1] / (h * w)).view(n, c, 1, 1)
+                                        - mean * mean + kernels.EPS)
+        g32 = o0.float()
+        gscale = torch.stack([g32.abs().sum(dim=(2, 3)), (g32 * yh).abs().sum(dim=(2, 3))], -1).reshape(-1)
+        plain_g0 = kernels.instance_norm_bwd_stats_plain(x0, o0, stats, relu, slope)
+        err_bstats = _scaled_err(g0, plain_g0, gscale)
+        abs_bstats = float((g0 - plain_g0).abs().max())
+        got = kernels.instance_norm_bwd_apply(x0, o0, stats, gsums, relu, slope)
+        err_apply, ok = _close(got, kernels.instance_norm_bwd_apply_plain(x0, o0, stats, gsums, relu, slope),
+                               dtype, TOL_F32_IN)
+        whole = torch.cat([kernels.instance_norm_bwd_apply(p, q, stats, gsums, relu, slope)
+                           for p, q in zip(halves, parts)], 2)
+        err_whole, ok_whole = _close(whole, kernels.instance_norm_act_bwd(x, other, relu, slope), dtype, TOL_F32_IN)
+        checks = {"in_bwd_stats": (abs_bstats, err_bstats <= TOL_STATS), "in_bwd_apply": (err_apply, ok)}
+        forms = {"in_bwd_stats": (lambda: kernels.instance_norm_bwd_stats(x0, o0, stats, relu, slope),
+                                  lambda: kernels.instance_norm_bwd_stats_plain(x0, o0, stats, relu, slope),
+                                  2 * x0.numel() * x0.element_size() + 16 * n * c + 4, (6 + int(relu)) * x0.numel()),
+                 "in_bwd_apply": (lambda: kernels.instance_norm_bwd_apply(x0, o0, stats, gsums, relu, slope),
+                                  lambda: kernels.instance_norm_bwd_apply_plain(x0, o0, stats, gsums, relu, slope),
+                                  3 * x0.numel() * x0.element_size() + 16 * n * c + 4, (7 + int(relu)) * x0.numel())}
+        what = "K2s + K2a"
+    torch.cuda.synchronize()
+    for name, (err, ok_) in checks.items():
+        check(ok_, f"{name} {label} {dtype}: error {err} against its plain version")
+    check(ok_whole, f"{what} over two shards {label} {dtype}: max_abs_err {err_whole} against the fused kernel")
+    text = []
+    for name, (kern, plain, nbytes, ops) in forms.items():
+        err = checks[name][0]
+        if timed:
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            out[name] = (ms, plain_ms, b_ms, b_by, err)
+            text.append(f"{name} max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        else:
+            text.append(f"{name} max_abs_err {err:.3g}")
+    tol = f"sums within {TOL_STATS:g} of the sums of |.|, apply " + _tol_text(dtype, TOL_F32_IN)
+    say("spatial", f"{what} {label} {str(dtype)[6:]} {tuple(shape)} rows {top}+{h - top}: " + "; ".join(text)
+                   + f"; over two shards against the fused kernel max_abs_err {err_whole:.3g} (tol {tol})")
+    del x, other, halves, parts
+    return out
+
+
+def _spatial_kernels() -> dict:
+    """The four partial forms at every IN site of one rank's bf16 S = 2 step
+    (timed, summed over its 34 sites), and at the stem's and the trunk's
+    sites in f32.  Returns their JSON rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    totals = {k: _Total() for k in ("in_stats", "in_apply", "in_bwd_stats", "in_bwd_apply")}
+    for label, shape, relu, res, count in IN_SITES:
+        for backward in (False, True):
+            lab = label.replace("residual", "no act (residual)") if backward else label
+            for k, r in _partial_case(gen, lab, shape, bf16, relu, res and not backward, 0.0, backward).items():
+                totals[k].add(count, *r)
+    for label, shape in D_SITES:
+        for backward in (False, True):
+            for k, r in _partial_case(gen, label, shape, bf16, True, False, 0.2, backward).items():
+                totals[k].add(D_READS, *r)
+    for label, shape, relu, res, _ in (IN_SITES[0], IN_SITES[3]):
+        for backward in (False, True):
+            _partial_case(gen, label, shape, f32, relu, res and not backward, 0.0, backward, timed=False)
+    for k, t in totals.items():
+        say("spatial", f"{k}, the 34 bf16 sites of one rank's S = {SPATIAL} batch-{BATCH} {S}^2 step: ms {t.ms:.4f} "
+                       f"plain_ms {t.plain_ms:.4f} bound_ms {t.bound_ms:.4f}")
+    src = "floodgan_tpu_torch/csrc/instance_norm.cu"
+    return {k: t.row(k, src, "floodgan_tpu/ops/pallas_kernels.py:" + ("53" if k in ("in_stats", "in_apply") else "109"))
+            for k, t in totals.items()}
+
+
+def _spatial_inputs():
+    return _train_inputs(np.random.default_rng(SEED + 13), BATCH, S)
+
+
+class _ExchangeClock:
+    """Host time of a spatial group's exchanges and reductions, each between
+    two synchronises of the card."""
+
+    def __init__(self, group):
+        self.group, self.seconds, self.calls = group, 0.0, 0
+        self._exchange, self._reduce = group.exchange, group.all_reduce_sum_
+        group.exchange = self._timed(self._exchange)
+        group.all_reduce_sum_ = self._timed(self._reduce)
+
+    def _timed(self, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return run
+
+    def stop(self) -> None:
+        self.group.exchange, self.group.all_reduce_sum_ = self._exchange, self._reduce
+
+
+def _spatial_rank(rank: int, device, out_dir: str) -> None:
+    """One of the [spatial] phase's two gloo ranks on card 0: its rows of
+    the global batch, two steps (launches counted over the first), timed
+    steps, one step with its exchanges timed, and one step under remat
+    ``boundaries``; the results to ``spatial_rank{r}.pt``."""
+    import os
+
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.parallel import mesh as mesh_lib
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    mesh = mesh_lib.make_mesh(SPATIAL, spatial=SPATIAL, device=device)
+    x, y = (torch.from_numpy(np.ascontiguousarray(mesh.shard_images(a))).to(device) for a in _spatial_inputs())
+    res = {"rows": x.shape[1]}
+
+    def make(**kw):
+        return PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED, mesh=mesh, **kw)
+
+    trainer = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    res["losses"] = [_losses(trainer.train_step(x, y, LR, epoch=1, step=0))]
+    torch.cuda.synchronize()
+    res["counts"] = dict(kernels.LAUNCHES)
+    res["losses"].append(_losses(trainer.train_step(x, y, LR, epoch=1, step=1)))
+    res["step_ms"] = _timed_steps(lambda i: trainer.train_step(x, y, LR, epoch=1, step=2 + i), SPATIAL_TIMED)
+    clock = _ExchangeClock(mesh.spatial)
+    t0 = time.perf_counter()
+    trainer.train_step(x, y, LR, epoch=1, step=2 + SPATIAL_TIMED)
+    torch.cuda.synchronize()
+    res["instrumented_ms"] = (time.perf_counter() - t0) * 1e3
+    clock.stop()
+    res["exchange_ms"], res["exchange_calls"] = clock.seconds * 1e3, clock.calls
+    res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["params"] = torch.cat([p.detach().reshape(-1).float().cpu() for m in (trainer.generator, trainer.discriminator)
+                               for p in m.parameters()])
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = make(remat=True, remat_policy="boundaries")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    res["remat_losses"] = _losses(trainer.train_step(x, y, LR, epoch=1, step=0))
+    torch.cuda.synchronize()
+    res["remat_counts"] = dict(kernels.LAUNCHES)
+    res["remat_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    torch.save(res, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
+
+
+def _nccl_two_ranks_one_card(rank: int, port: int, out_dir: str) -> None:
+    """Two NCCL ranks on card 0, past ``check_devices``: the error NCCL
+    raises at the first collective, to ``nccl_rank{r}.txt``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=60))
+        dist.all_reduce(torch.ones(1, device="cuda:0"))
+        torch.cuda.synchronize()
+        msg = "no error"
+    except Exception as e:  # the refusal is what this records
+        msg = f"{type(e).__name__}: {e}"
+    with open(os.path.join(out_dir, f"nccl_rank{rank}.txt"), "w") as f:
+        f.write(msg)
+    os._exit(0)  # a refused NCCL communicator is not torn down
+
+
+def phase_spatial(smi, train_figures) -> tuple:
+    """The spatial axis (module docstring, phase 14).  Returns (the launch
+    counts of the two ranks' counted steps, the partial forms' JSON rows)."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from floodgan_tpu_torch.parallel import mesh as mesh_lib
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    t_phase = time.perf_counter()
+    rows = _spatial_kernels()
+    torch.cuda.empty_cache()
+
+    # The baseline: one process on the card, the whole batch, the same init.
+    x, y = (torch.from_numpy(a).cuda() for a in _spatial_inputs())
+    base = PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED)
+    base_losses = [_losses(base.train_step(x, y, LR, epoch=1, step=i)) for i in range(2)]
+    del base, x, y
+    torch.cuda.empty_cache()
+
+    out = tempfile.mkdtemp(prefix="floodgan_spatial_")
+    try:
+        # NCCL refuses two ranks on one card; the port's check_devices says so first.
+        try:
+            mesh_lib.check_devices(2, "cuda", backend="nccl", devices=[0, 0])
+            refused = "not refused"
+        except ValueError as e:
+            refused = str(e)
+        check(refused.startswith("NCCL takes one rank per card"), f"check_devices: {refused}")
+        ctx = mp.start_processes(_nccl_two_ranks_one_card, args=(mesh_lib.free_port(), out), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 120
+        while not ctx.join(timeout=0.5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SmokeFailure("two NCCL ranks on one card did not return within 120 s")
+        nccl = [open(os.path.join(out, f"nccl_rank{r}.txt")).read() for r in range(2)]
+        say("spatial", f"check_devices refuses two NCCL ranks on card 0: {refused!r}; past it, NCCL's first "
+                       f"collective raised on rank 0: {nccl[0][:300]!r}; rank 1: {nccl[1][:300]!r}")
+        check(all(m != "no error" for m in nccl), f"two NCCL ranks on one card ran a collective: {nccl}")
+
+        t0 = time.perf_counter()
+        mesh_lib.spawn(_spatial_rank, SPATIAL, args=(out,), device_type="cuda", backend="gloo",
+                       cards=[0] * SPATIAL, timeout_s=300, join_timeout_s=400)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"spatial_rank{r}.pt")) for r in range(SPATIAL)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    total = {k: 0 for k in NO_LAUNCHES}
+    for r, res in enumerate(ranks):
+        check(res["rows"] == S // SPATIAL, f"rank {r} holds {res['rows']} rows")
+        check(res["counts"] == SPATIAL_STEP_LAUNCHES, f"rank {r}: one step launched {res['counts']}, "
+                                                      f"expected {SPATIAL_STEP_LAUNCHES}")
+        check(res["remat_counts"] == SPATIAL_REMAT_LAUNCHES, f"rank {r}: one remat step launched "
+                                                             f"{res['remat_counts']}, expected {SPATIAL_REMAT_LAUNCHES}")
+        for k in total:
+            total[k] += res["counts"][k] + res["remat_counts"][k]
+    a, b = ranks
+    check(a["losses"] == b["losses"] and a["remat_losses"] == b["remat_losses"], "the ranks report other losses")
+    check(torch.equal(a["params"], b["params"]), "the ranks' parameters differ after the steps")
+    check(all(np.isfinite(v) for step in a["losses"] for v in step.values()), f"losses {a['losses']}")
+    rel = [{k: abs(a["losses"][i][k] - base_losses[i][k]) / abs(base_losses[i][k]) for k in base_losses[i]}
+           for i in range(2)]
+    say("spatial", f"PairedAttention {S}^2 global batch {BATCH} bf16, D = 1, S = {SPATIAL}: 2 gloo ranks on card 0, "
+                   f"{S // SPATIAL} rows each; in {wall:.1f} s of spawn (start-up, 2 trainers, "
+                   f"{3 + SPATIAL_TIMED} plain steps and a remat step each)")
+    for i in range(2):
+        tols = {k: TOL_SPATIAL_STEP1 if i == 0 and k != "losses_generator_synthetic" else TOL_SPATIAL_UPDATED
+                for k in rel[i]}
+        say("spatial", f"step {i + 1}: the ranks {json.dumps(a['losses'][i])}, one process {json.dumps(base_losses[i])}; "
+                       "rel diff " + ", ".join(f"{k} {rel[i][k]:.3g} (tol {tols[k]:.3g})" for k in rel[i]))
+        check(all(rel[i][k] <= tols[k] for k in rel[i]), f"step {i + 1}: the ranks' losses against one process's: "
+                                                         f"{rel[i]}")
+    check(a["remat_losses"] == a["losses"][0], f"remat boundaries step 1 {a['remat_losses']} against "
+                                               f"{a['losses'][0]}")
+    say("spatial", f"launches of one step on each rank {a['counts']} (no fused K1/K2); under remat boundaries "
+                   f"{a['remat_counts']}; step 1 under remat equals the plain step's bit for bit; the ranks hold "
+                   f"equal parameters bit for bit after {3 + SPATIAL_TIMED} steps")
+    for r, res in enumerate(ranks):
+        med, lo, hi = res["step_ms"]
+        say("spatial", f"rank {r}: step ms median {med:.1f} over {SPATIAL_TIMED} (min {lo:.1f}, max {hi:.1f}) -- "
+                       f"one card, two processes sharing it, halos and sums staged through the host over gloo: "
+                       f"not a measure of scaling; an instrumented step {res['instrumented_ms']:.1f} ms, of it "
+                       f"{res['exchange_ms']:.1f} ms in {res['exchange_calls']} exchanges and reductions (each "
+                       f"between two synchronises); peak memory {res['peak_gib']:.3f} GiB, under remat "
+                       f"{res['remat_peak_gib']:.3f} GiB ({smi})")
+    say("spatial", f"one process at the whole batch ([train]): step ms {train_figures[0]:.1f}, peak "
+                   f"{train_figures[1]:.3f} GiB ({smi}); the phase took {time.perf_counter() - t_phase:.1f} s")
+    return total, rows
+
+
 def _write_geotiff(path: str, array: np.ndarray, x_min: float, y_max: float, px_w: float, px_h: float) -> None:
     """``array`` as a TIFF (the port's writer) with the two GeoTIFF tags
     that ``tiff.geotransform`` reads appended: ModelPixelScale (33550,
@@ -2679,6 +3054,8 @@ def main() -> int:
         families_counts, family_ckpts, family_figures = phase_families(smi, root, tests, step_rate)
         remat_counts = phase_remat(smi, root, family_figures["attentiongan"], train_figures)
         dp_counts = phase_dp(smi)
+        spatial_counts, spatial_rows = phase_spatial(smi, train_figures)
+        rows.update(spatial_rows)
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
         etl_counts, etl_ckpt = phase_etl(smi, root)
         load_counts = phase_load(smi, etl_ckpt)
@@ -2686,6 +3063,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
             "eval": eval_counts, "families": families_counts, "remat": remat_counts, "dp": dp_counts,
+            "spatial": spatial_counts,
             "compare": compare_counts, "etl": etl_counts, "load": load_counts}
     for k, row in rows.items():
         row["launches"] = sum(c[k] for c in runs.values())

@@ -27,7 +27,15 @@ train with ``train.paired.PairedTrainer``, CycleGAN and AttentionGAN with
   N must divide; the remainder batch is dropped), the reported losses are
   the global batch's means, rank 0 alone prints, plots and writes
   artifacts, and checkpoints are ``.sharded`` directories
-  (``ckpt.sharded``), which resume like ``.ckpt`` files.
+  (``ckpt.sharded``), which resume like ``.ckpt`` files;
+- the spatial axis (floodgan_tpu/api/model.py:237-249): with
+  ``num_spatial_devices=S > 1`` the ``D x S`` ranks (D =
+  ``num_data_devices``) each hold rows ``[s·H/S, (s+1)·H/S)`` of their
+  stripe's images, PairedAttention only (the other families raise,
+  ROADMAP.md item 12b).  H must divide by S, as in JAX, and the shard
+  height H/S by 8, with H/S >= 24 (the PatchGAN's levels;
+  ``parallel.spatial``).  Plots run the generator on whole images on rank
+  0 alone.
 
 Losses stay on the device within an epoch, with one transfer at its end.
 ``epoch_stats`` records, per epoch, its wall time, the seconds the loop
@@ -40,8 +48,6 @@ per image) and over the split's pixels (the flood-mask metrics of a
 segmentation U-Net), and writes the metric CSV in pandas' layout;
 ``plot_image`` renders one named image of the dataset.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md Queue 1
-item: the spatial axis of a mesh (``num_spatial_devices > 1``, item 12).
 """
 
 from __future__ import annotations
@@ -172,7 +178,8 @@ class Model:
         if num_data_devices > 1 or num_spatial_devices > 1:
             if batch_size % num_data_devices:
                 raise ValueError("batch_size must be divisible by num_data_devices")
-            self.mesh = make_mesh(num_data_devices, spatial=num_spatial_devices, device=device)
+            self.mesh = make_mesh(num_data_devices * num_spatial_devices, spatial=num_spatial_devices,
+                                  device=device)
             device = self.mesh.device
         self.is_main = self.mesh is None or self.mesh.rank == 0
         if verbose and self.is_main:
@@ -234,12 +241,23 @@ class Model:
         if self.mesh is not None:
             # Each rank decodes its stripe; a remainder batch cannot split evenly.
             loader = self.train_loader
-            self.train_loader = MultiHostBatchLoader(loader.dataset, loader.batch_size, self.mesh.rank,
-                                                     self.mesh.size, device=loader.device)
+            self.train_loader = MultiHostBatchLoader(loader.dataset, loader.batch_size, self.mesh.data_index,
+                                                     self.mesh.size, device=loader.device,
+                                                     spatial_index=self.mesh.spatial_index,
+                                                     spatial_count=self.mesh.spatial_size)
 
         # -- trainer and state (floodgan_tpu/api/model.py:206-216) --
         # remat_policy=None keeps each trainer's default (floodgan_tpu/api/model.py:200-215).
         image_hw = self._image_hw()  # and the square-source guard
+        if num_spatial_devices > 1:
+            if image_hw[0] % num_spatial_devices:
+                raise ValueError("image height must be divisible by num_spatial_devices")
+            rows = image_hw[0] // num_spatial_devices
+            if rows % 8 or rows < 24:
+                raise ValueError(
+                    f"a shard of {rows} rows (height {image_hw[0]} over {num_spatial_devices} spatial ranks): the "
+                    "PatchGAN's three stride-2 levels and two k4 s1 p1 convs need H/S divisible by 8 and >= 24"
+                )
         policy = {} if remat_policy is None else {"remat_policy": remat_policy}
         if self.model_is_cycle:
             self.trainer = CycleTrainer(
@@ -466,7 +484,7 @@ class Model:
             model_path = self.mesh.broadcast_object(model_path + ".sharded")
             if self.is_main:
                 _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
-            save_checkpoint_sharded(model_path, meta, state, self.mesh.rank, self.mesh.size)
+            save_checkpoint_sharded(model_path, meta, state, self.mesh.rank, self.mesh.world_size)
             return model_path
         _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
         if self._async_ckpt is not None:

@@ -1,4 +1,4 @@
-"""Per-process checkpoint directories for data-parallel runs: the port of
+"""Per-process checkpoint directories for runs on a mesh: the port of
 floodgan_tpu/ckpt/sharded.py, in its directory format, so that either
 package reads the other's.
 
@@ -12,9 +12,11 @@ package reads the other's.
                              "data": <C-order bytes>}, ...]}
 
 Responsibility is JAX's rule: a process writes a piece iff it holds
-replica 0 of it, so each datum is written once.  Under data parallelism
-every leaf is replicated and replica 0 lives on rank 0, so rank 0 writes
-every leaf whole and the other ranks write an empty map.  Every process
+replica 0 of it, so each datum is written once.  On a ``D x S`` mesh
+(data and spatial axes) every parameter and optimizer leaf is replicated
+and replica 0 lives on rank 0, so rank 0 writes every leaf whole, the
+other ranks write an empty map, and the process count is the world size,
+``D x S``.  Every process
 writes its own file, atomically (``.tmp`` and a rename).  Process 0 then
 removes the shard files of a larger topology saved into the same
 directory before; a loader ignores files at or above the recorded process

@@ -12,11 +12,13 @@ paired step, CycleGAN and AttentionGAN with the cycle step) on the card
 unless ``--device cpu`` is given.
 
 ``--remat [--remat_policy P]`` recomputes the generator reads in the
-backward.  ``--num_data_devices N`` trains data-parallel on N cards of
-this host: the command starts N processes, one per card, in one NCCL group
-over localhost (gloo processes with ``--device cpu``), and fails as soon as
-one of them does.  Started by torchrun (``WORLD_SIZE`` and ``RANK`` set),
-it joins that group instead.  ``--batch_size`` is the global batch.
+backward.  ``--num_data_devices D --num_spatial_devices S`` trains on a
+``D x S`` mesh of cards of this host: the batch is split over D stripes
+and each image's height over S ranks (PairedAttention only for S > 1).
+The command starts D x S processes, one per card, in one NCCL group over
+localhost (gloo processes with ``--device cpu``), and fails as soon as one
+of them does.  Started by torchrun (``WORLD_SIZE`` = D x S and ``RANK``
+set), it joins that group instead.  ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=47, help="Seed for parameter initialisation (per-epoch data order is keyed by the epoch number alone)")
     parser.add_argument("--batch_size", type=int, default=1, help="Per-step global batch size (the reference hardcodes 1)")
     parser.add_argument("--num_data_devices", type=int, default=1, help="Data-parallel mesh size (shards the batch over cards, one process per card)")
-    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial mesh size (shards the image height axis over cards; total cards = data x spatial; not ported yet: must be 1)")
+    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial mesh size (shards the image height axis over cards; total cards = data x spatial; PairedAttention only)")
     parser.add_argument("--metadata_dir", default=None, help="Directory holding dataset_split.csv (defaults to ./metadata like the reference)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"], help="Activation/flop dtype (f32 master params either way)")
     parser.add_argument("--remat", action="store_true", default=False, help="Rematerialise generator activations (lets cycle models train at 512^2 with batch > 1 in 16GB HBM)")
@@ -75,7 +77,7 @@ def _train(args):
 
 
 def _rank_train(rank: int, device, args) -> None:
-    """One rank of ``--num_data_devices N``: the model on its own device."""
+    """One rank of the ``D x S`` mesh: the model on its own device."""
     args.device = str(device)
     _train(args)
 
@@ -92,17 +94,16 @@ def main(argv=None):
         if not os.path.exists(args.pretrained_model_path):  # a .ckpt file or a .sharded directory
             raise FileNotFoundError("Saved model not found. Check the path to the model.")
 
-    if args.num_data_devices > 1:
+    world = args.num_data_devices * args.num_spatial_devices
+    if world > 1:
         from floodgan_tpu_torch.parallel import mesh
 
-        if args.num_spatial_devices > 1:
-            mesh.make_mesh(args.num_data_devices, spatial=args.num_spatial_devices)  # raises: not ported
         device_type = torch_device_type(args.device)
         device = mesh.join_environment(device_type)
         if device is not None:  # torchrun started this rank
             args.device = str(device)
             return _train(args)
-        mesh.spawn(_rank_train, args.num_data_devices, args=(args,), device_type=device_type)
+        mesh.spawn(_rank_train, world, args=(args,), device_type=device_type)
         return None
     return _train(args)
 

@@ -13,6 +13,13 @@ instance norms and the compose run in the hand-written kernels on the card
 (ops/kernels.py); ``tanh`` stays outside the compose kernel, as in the JAX
 module.  ``forward`` runs in seven segments whose ends are the JAX
 module's ``seg_boundary`` marks, for remat's ``"boundaries"`` policy.
+
+With a spatial group (``models.layers.set_spatial_mesh``) x holds this
+rank's rows of each image: the stem and the content head read 3 halo rows
+each side (reflecting at the image's edges), conv2/conv3 one above, each
+ConvT one below (its output cropped to 2h rows), the trunk one each side,
+and the instance norms reduce over the group.  The attention head's k1
+conv, ``tanh`` and the compose are pixel-wise and stay local.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 
 from floodgan_tpu_torch.models.trunk import ResnetTrunk
 from floodgan_tpu_torch.ops import kernels, nn_ops
+from floodgan_tpu_torch.parallel import spatial
 
 
 def _call(fn: Callable, *args):
@@ -50,21 +58,33 @@ class AttentionGenerator(nn.Module):
         self.deconv1_attention = _deconv(256, 128)
         self.deconv2_attention = _deconv(128, 64)
         self.deconv3_attention = nn.Conv2d(64, 10, 1)
+        self.spatial = None  # a spatial group: x holds this rank's rows (models.layers.set_spatial_mesh)
 
     # The segments between JAX's seg_boundary marks
     # (floodgan_tpu/models/attention.py:83, 86, 121, 123, 170, 178).
     def _encoder(self, x: torch.Tensor) -> torch.Tensor:
-        in_act = nn_ops.instance_norm_act
-        h = in_act(self.conv1(nn_ops.reflect_pad2d(x, 3)), relu=True)
-        h = in_act(self.conv2(h), relu=True)
-        return in_act(self.conv3(h), relu=True)
+        sp = self.spatial
+        if sp is not None:
+            spatial.check_generator_rows(x.shape[2])
+        h = self._in_act(self.conv1(nn_ops.reflect_pad2d(x, 3, sp, "conv1")))
+        h = self._in_act(self._down(self.conv2, h, "conv2"))
+        return self._in_act(self._down(self.conv3, h, "conv3"))
 
-    @staticmethod
-    def _up(deconv: nn.Module, h: torch.Tensor) -> torch.Tensor:
-        return nn_ops.instance_norm_act(deconv(h), relu=True)
+    def _in_act(self, h: torch.Tensor) -> torch.Tensor:
+        return nn_ops.instance_norm_act(h, relu=True, spatial=self.spatial)
+
+    def _down(self, conv: nn.Conv2d, h: torch.Tensor, layer: str) -> torch.Tensor:
+        if self.spatial is None:
+            return conv(h)
+        return spatial.conv2d_rows(h, conv, 1, 0, self.spatial, layer)
+
+    def _up(self, deconv: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:
+            return self._in_act(spatial.conv_transpose2d_rows(h, deconv, self.spatial, "deconv"))
+        return self._in_act(deconv(h))
 
     def _heads(self, c: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        content = torch.tanh(self.deconv3_content(nn_ops.reflect_pad2d(c, 3)))
+        content = torch.tanh(self.deconv3_content(nn_ops.reflect_pad2d(c, 3, self.spatial, "deconv3_content")))
         return kernels.attention_compose(content, self.deconv3_attention(a), x[:, :3])
 
     def forward(self, x: torch.Tensor, run: Callable = _call) -> Tuple[torch.Tensor, torch.Tensor]:

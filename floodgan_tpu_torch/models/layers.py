@@ -1,6 +1,8 @@
 """Weight initialisation of the reference's ``initialise_weights``, the
 batch-norm layer of the U-Net, the Pix2Pix U-Net and the BatchNorm
-PatchGAN, and Pix2Pix's dropout.
+PatchGAN, Pix2Pix's dropout, and the switches that put a network on a
+data mesh (``set_data_mesh``) or on the mesh's spatial axis
+(``set_spatial_mesh``).
 
 Conv and transposed-conv weights ~ N(0, 0.02) with zero bias, batch-norm
 scale ~ 1 + 0.02 N(0, 1) with zero bias (floodgan_tpu/models/layers.py:16-20,
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from floodgan_tpu_torch.ops import nn_ops
+from floodgan_tpu_torch.parallel.spatial import not_ported
 
 
 class BatchNorm2d(nn.Module):
@@ -40,6 +43,22 @@ def set_data_mesh(module: nn.Module, mesh) -> nn.Module:
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
             m.mesh = mesh
+    return module
+
+
+def set_spatial_mesh(module: nn.Module, group) -> nn.Module:
+    """The twin of ``set_data_mesh`` for the mesh's spatial axis: every
+    layer of ``module`` that reads a ``spatial`` group takes ``group`` (a
+    ``parallel.spatial.SpatialGroup``, or None for whole images), so that
+    ``module`` runs on this rank's rows of each image.  The attention
+    generator and the instance-norm PatchGAN take one; the other networks
+    raise ``NotImplementedError`` for a group (ROADMAP.md item 12b)."""
+    if group is not None and (not hasattr(module, "spatial")
+                              or any(isinstance(m, BatchNorm2d) for m in module.modules())):
+        raise not_ported(f"{type(module).__name__}{' (batch norm)' if hasattr(module, 'spatial') else ''}")
+    for m in module.modules():
+        if hasattr(m, "spatial"):
+            m.spatial = group
     return module
 
 

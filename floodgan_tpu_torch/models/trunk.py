@@ -17,12 +17,14 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(dim, dim, 3)
         self.conv2 = nn.Conv2d(dim, dim, 3)
+        self.spatial = None  # a spatial group: h holds this rank's rows (models.layers.set_spatial_mesh)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        y = nn_ops.reflect_conv2d(h, self.conv1.weight, self.conv1.bias, pad=1)
-        y = nn_ops.instance_norm_act(y, relu=True)
-        y = nn_ops.reflect_conv2d(y, self.conv2.weight, self.conv2.bias, pad=1)
-        return nn_ops.instance_norm_act(y, residual=h)
+        sp = self.spatial
+        y = nn_ops.reflect_conv2d(h, self.conv1.weight, self.conv1.bias, pad=1, spatial=sp, layer="trunk conv1")
+        y = nn_ops.instance_norm_act(y, relu=True, spatial=sp)
+        y = nn_ops.reflect_conv2d(y, self.conv2.weight, self.conv2.bias, pad=1, spatial=sp, layer="trunk conv2")
+        return nn_ops.instance_norm_act(y, residual=h, spatial=sp)
 
 
 class ResnetTrunk(nn.Module):

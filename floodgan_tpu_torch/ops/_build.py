@@ -44,6 +44,18 @@ SIGNATURES = {
     # x, g, dx, planes, hw, relu, slope, eps, stream
     "floodgan_in_bwd_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
     "floodgan_in_bwd_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    # The partial forms: x, stats, planes, hw, rows, stream
+    "floodgan_in_stats_f32": (_P, _P, _I64, _I64, _F32, _P),
+    "floodgan_in_stats_bf16": (_P, _P, _I64, _I64, _F32, _P),
+    # x, residual (or NULL), stats, y, planes, hw, row elements, relu, slope, eps, stream
+    "floodgan_in_apply_f32": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
+    "floodgan_in_apply_bf16": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
+    # x, g, stats, gsums, planes, hw, row elements, relu, slope, eps, stream
+    "floodgan_in_bwd_stats_f32": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
+    "floodgan_in_bwd_stats_bf16": (_P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
+    # x, g, stats, gsums, dx, planes, hw, row elements, relu, slope, eps, stream
+    "floodgan_in_bwd_apply_f32": (_P, _P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
+    "floodgan_in_bwd_apply_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _F32, _I32, _F32, _F32, _P),
     # content, logits, rgb, out, mask, batch, hw, rgb batch stride, stream
     "floodgan_attention_compose_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "floodgan_attention_compose_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),

@@ -8,9 +8,16 @@ their autograd Functions and their launch counters.
   ``_compose_kernel``, and ``attention_compose_bwd`` (K4, same file)
   replaces ``_compose_bwd_kernel``;
 - ``row_copy_fwd`` (csrc/row_copy.cu, K5) replaces ``copy_kernel``, the
-  Pallas layout fence of tools/microbench_head.py.
+  Pallas layout fence of tools/microbench_head.py;
+- the partial forms of K1 and K2 (csrc/instance_norm.cu) serve a plane
+  whose rows are split over the ranks of the mesh's spatial axis:
+  ``instance_norm_stats`` (K1s) and ``instance_norm_apply`` (K1a) around a
+  sum of the per-plane statistics over the ranks, and
+  ``instance_norm_bwd_stats`` (K2s) and ``instance_norm_bwd_apply`` (K2a)
+  around a sum of the per-plane gradient sums.  JAX runs K1/K2 on a
+  gathered tensor there (a ``pallas_call`` cannot be partitioned).
 
-``InstanceNormAct`` and ``AttentionCompose`` pair each forward with its
+``InstanceNormAct``, ``SpatialInstanceNormAct`` and ``AttentionCompose`` pair each forward with its
 backward, as the JAX package's custom VJPs do; ``instance_norm_act`` and
 ``attention_compose`` are the entry points the models call.  With grad
 disabled they launch the forward kernels only.  ``RowCopy`` (entry point
@@ -33,7 +40,8 @@ import torch
 
 from floodgan_tpu_torch.ops import _build
 
-LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0}
+LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0,
+            "in_stats": 0, "in_apply": 0, "in_bwd_stats": 0, "in_bwd_apply": 0}
 
 EPS = 1e-5
 
@@ -232,15 +240,204 @@ class InstanceNormAct(torch.autograd.Function):
         return dx, dres, None, None, None
 
 
+# ------------------------------------------ the partial forms (spatial axis)
+#
+# A statistics buffer holds 2 * planes + 1 values: (sum x, sum x^2) of each
+# (n, c) plane, then the plane's row count.  ``instance_norm_stats`` gives
+# this rank's; summed over the ranks that hold the plane's rows, it is the
+# whole plane's, with n = rows * W.  The plain versions work in x's type
+# promoted to f32 (float64 for the gradient checks).
+
+_IN_STATS_ENTRY = {torch.float32: "floodgan_in_stats_f32", torch.bfloat16: "floodgan_in_stats_bf16"}
+_IN_APPLY_ENTRY = {torch.float32: "floodgan_in_apply_f32", torch.bfloat16: "floodgan_in_apply_bf16"}
+_IN_BWD_STATS_ENTRY = {torch.float32: "floodgan_in_bwd_stats_f32", torch.bfloat16: "floodgan_in_bwd_stats_bf16"}
+_IN_BWD_APPLY_ENTRY = {torch.float32: "floodgan_in_bwd_apply_f32", torch.bfloat16: "floodgan_in_bwd_apply_bf16"}
+
+
+def _summed_stats(x: torch.Tensor, stats: torch.Tensor, eps: float):
+    """(mean, inv, n) of each plane of x from a summed statistics buffer:
+    mean and inv shaped (N, C, 1, 1), n the global element count."""
+    nb, c, _, w = x.shape
+    planes = nb * c
+    n = stats[2 * planes] * w
+    sums = stats[:2 * planes].view(nb, c, 1, 1, 2)
+    mean = sums[..., 0] / n
+    return mean, torch.rsqrt(sums[..., 1] / n - mean * mean + eps), n
+
+
+def instance_norm_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """K1s's function: the statistics buffer of x's rows."""
+    x32 = _f32(x)
+    sums = torch.stack([x32.sum(dim=(2, 3)), (x32 * x32).sum(dim=(2, 3))], -1).reshape(-1)
+    return torch.cat([sums, sums.new_tensor([x.shape[2]])])
+
+
+def instance_norm_apply_plain(x, stats, relu=False, residual=None, negative_slope=0.0, eps=EPS):
+    """K1a's function: ``instance_norm_act_plain``'s apply with the
+    statistics of a summed buffer."""
+    x32 = _f32(x)
+    mean, inv, _ = _summed_stats(x, stats.to(x32.dtype), eps)
+    y = (x32 - mean) * inv
+    if relu:
+        y = torch.where(y >= 0.0, y, y * negative_slope)
+    if residual is not None:
+        y = y + _f32(residual)
+    return y.to(x.dtype)
+
+
+def _yhat_gtilde(x, g, stats, relu, negative_slope, eps):
+    x32, g32 = _f32(x), _f32(g)
+    mean, inv, n = _summed_stats(x, stats.to(x32.dtype), eps)
+    yh = (x32 - mean) * inv
+    if relu:
+        g32 = torch.where(yh >= 0.0, g32, g32 * negative_slope)
+    return yh, g32, inv, n
+
+
+def instance_norm_bwd_stats_plain(x, g, stats, relu=False, negative_slope=0.0, eps=EPS):
+    """K2s's function: (sum g~, sum g~ * yhat) of each plane of x's rows,
+    2 * planes values, yhat from the summed statistics."""
+    yh, g32, _, _ = _yhat_gtilde(x, g, stats, relu, negative_slope, eps)
+    return torch.stack([g32.sum(dim=(2, 3)), (g32 * yh).sum(dim=(2, 3))], -1).reshape(-1)
+
+
+def instance_norm_bwd_apply_plain(x, g, stats, gsums, relu=False, negative_slope=0.0, eps=EPS):
+    """K2a's function: ``instance_norm_act_bwd_plain``'s dx with the summed
+    statistics and gradient sums."""
+    yh, g32, inv, n = _yhat_gtilde(x, g, stats, relu, negative_slope, eps)
+    sums = gsums.to(g32.dtype).view(x.shape[0], x.shape[1], 1, 1, 2)
+    return (inv * (g32 - sums[..., 0] / n - yh * (sums[..., 1] / n))).to(x.dtype)
+
+
+def _stats_operand(t: torch.Tensor, x: torch.Tensor, size: int, what: str, name: str) -> None:
+    if t.device != x.device or t.dtype != torch.float32 or t.shape != (size,) or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous f32 vector of {size} on {x.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
+    """K1s: the statistics buffer of x's rows, f32: the CUDA kernel for a
+    CUDA tensor (f32 or bf16, contiguous), the plain version for a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return instance_norm_stats_plain(x)
+    name = "instance_norm_stats"
+    _in_cuda_checks(x, name)
+    n, c, h, w = x.shape
+    stats = torch.empty(2 * n * c + 1, device=x.device, dtype=torch.float32)
+    fn = getattr(_build.library(), _IN_STATS_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), stats.data_ptr(), n * c, h * w, float(h), _stream(x))
+    _check_launch(err, name)
+    LAUNCHES["in_stats"] += 1
+    return stats
+
+
+def instance_norm_apply(x, stats, relu=False, residual=None, negative_slope=0.0, eps=EPS):
+    """K1a: IN(+activation)(+residual) of x's rows with the statistics of a
+    summed buffer: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if x.device.type == "cpu":
+        return instance_norm_apply_plain(x, stats, relu, residual, negative_slope, eps)
+    name = "instance_norm_apply"
+    _in_cuda_checks(x, name)
+    n, c, h, w = x.shape
+    _stats_operand(stats, x, 2 * n * c + 1, "stats", name)
+    if residual is not None:
+        _same_layout(residual, x, "residual", name)
+    y = torch.empty_like(x)
+    fn = getattr(_build.library(), _IN_APPLY_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), residual.data_ptr() if residual is not None else None, stats.data_ptr(),
+                 y.data_ptr(), n * c, h * w, float(w), int(relu), float(negative_slope), float(eps), _stream(x))
+    _check_launch(err, name)
+    LAUNCHES["in_apply"] += 1
+    return y
+
+
+def instance_norm_bwd_stats(x, g, stats, relu=False, negative_slope=0.0, eps=EPS):
+    """K2s: (sum g~, sum g~ * yhat) of each plane of x's rows, f32: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return instance_norm_bwd_stats_plain(x, g, stats, relu, negative_slope, eps)
+    name = "instance_norm_bwd_stats"
+    _in_cuda_checks(x, name)
+    _same_layout(g, x, "g", name)
+    n, c, h, w = x.shape
+    _stats_operand(stats, x, 2 * n * c + 1, "stats", name)
+    gsums = torch.empty(2 * n * c, device=x.device, dtype=torch.float32)
+    fn = getattr(_build.library(), _IN_BWD_STATS_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), g.data_ptr(), stats.data_ptr(), gsums.data_ptr(), n * c, h * w, float(w),
+                 int(relu), float(negative_slope), float(eps), _stream(x))
+    _check_launch(err, name)
+    LAUNCHES["in_bwd_stats"] += 1
+    return gsums
+
+
+def instance_norm_bwd_apply(x, g, stats, gsums, relu=False, negative_slope=0.0, eps=EPS):
+    """K2a: dx of x's rows from the summed statistics and gradient sums: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return instance_norm_bwd_apply_plain(x, g, stats, gsums, relu, negative_slope, eps)
+    name = "instance_norm_bwd_apply"
+    _in_cuda_checks(x, name)
+    _same_layout(g, x, "g", name)
+    n, c, h, w = x.shape
+    _stats_operand(stats, x, 2 * n * c + 1, "stats", name)
+    _stats_operand(gsums, x, 2 * n * c, "gsums", name)
+    dx = torch.empty_like(x)
+    fn = getattr(_build.library(), _IN_BWD_APPLY_ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), g.data_ptr(), stats.data_ptr(), gsums.data_ptr(), dx.data_ptr(), n * c, h * w,
+                 float(w), int(relu), float(negative_slope), float(eps), _stream(x))
+    _check_launch(err, name)
+    LAUNCHES["in_bwd_apply"] += 1
+    return dx
+
+
+class SpatialInstanceNormAct(torch.autograd.Function):
+    """IN(+activation)(+residual) of a plane whose rows are split over the
+    ranks of a spatial ``group`` (``parallel.spatial.SpatialGroup``): K1s,
+    the statistics summed over the group, K1a.  The backward saves x and
+    the summed statistics (8 bytes a plane and the row count), so it
+    reduces only the gradient sums: K2s, their sum over the group, K2a."""
+
+    @staticmethod
+    def forward(ctx, x, residual, relu, negative_slope, eps, group):
+        stats = group.all_reduce_sum_(instance_norm_stats(x))
+        ctx.save_for_backward(x, stats)
+        ctx.args = (relu, negative_slope, eps, group)
+        ctx.has_residual = residual is not None
+        return instance_norm_apply(x, stats, relu, residual, negative_slope, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        relu, negative_slope, eps, group = ctx.args
+        g = g.contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            gsums = group.all_reduce_sum_(instance_norm_bwd_stats(x, g, stats, relu, negative_slope, eps))
+            dx = instance_norm_bwd_apply(x, g, stats, gsums, relu, negative_slope, eps)
+        dres = g if ctx.has_residual and ctx.needs_input_grad[1] else None
+        return dx, dres, None, None, None, None
+
+
 def instance_norm_act(
     x: torch.Tensor,
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     negative_slope: float = 0.0,
     eps: float = EPS,
+    spatial=None,
 ) -> torch.Tensor:
     """IN(+activation)(+residual) over NCHW, differentiable: K1 forward and
-    K2 backward on the card, the plain versions on the CPU."""
+    K2 backward on the card, the plain versions on the CPU.  With a
+    ``spatial`` group x holds this rank's rows of each plane, and the
+    partial forms run around the group's sums (``SpatialInstanceNormAct``)."""
+    if spatial is not None:
+        return SpatialInstanceNormAct.apply(x, residual, relu, negative_slope, eps, spatial)
     return InstanceNormAct.apply(x, residual, relu, negative_slope, eps)
 
 

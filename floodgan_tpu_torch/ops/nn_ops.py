@@ -4,7 +4,10 @@ Twins of the image-space subset of floodgan_tpu/ops/nn_ops.py.  The JAX
 package's phase-space lowerings re-express the same math for the TPU's
 layout and are not ported.  Convolutions are F.conv2d and
 F.conv_transpose2d (the twins of ``conv2d`` and ``conv_transpose2d``
-there); instance norm goes to the hand-written kernel on the card.  The
+there); instance norm goes to the hand-written kernel on the card.  With a
+spatial group (the mesh's ``spatial`` axis) the reflect pads read their
+halo rows from the neighbouring ranks and the instance norm reduces its
+statistics over the group (``parallel.spatial``).  The
 U-Net's batch norm and max-pool were XLA ops there, not Pallas kernels,
 and are ATen ops here; batch norm spells out its statistics so that a
 data mesh can make them global.
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from floodgan_tpu_torch.ops.kernels import instance_norm_act
+from floodgan_tpu_torch.parallel import spatial as spatial_lib
 
 __all__ = [
     "batch_norm", "instance_norm_act", "leaky_relu", "max_pool2d", "pad_to_match", "reflect_conv2d",
@@ -25,17 +29,24 @@ __all__ = [
 ]
 
 
-def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """ReflectionPad2d(pad) on (H, W)."""
+def reflect_pad2d(x: torch.Tensor, pad: int, spatial=None, layer: str = "reflect pad") -> torch.Tensor:
+    """ReflectionPad2d(pad) on (H, W).  With a ``spatial`` group
+    (``parallel.spatial.SpatialGroup``) x holds this rank's rows of each
+    image: the rows beyond them come from the neighbouring ranks, and only
+    the image's own top and bottom reflect."""
+    if spatial is not None:
+        return spatial_lib.reflect_pad2d(x, pad, spatial, layer)
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 
 def reflect_conv2d(
-    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, pad: int = 1
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, pad: int = 1, spatial=None,
+    layer: str = "reflect conv",
 ) -> torch.Tensor:
     """conv2d(reflect_pad2d(x, pad), w, b) for odd k = 2*pad+1 kernels (the
-    trunk's pad-1 3x3 shape); ``w`` is OIHW."""
-    return F.conv2d(reflect_pad2d(x, pad), w, b)
+    trunk's pad-1 3x3 shape); ``w`` is OIHW.  ``spatial`` as for
+    ``reflect_pad2d``."""
+    return F.conv2d(reflect_pad2d(x, pad, spatial, layer), w, b)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

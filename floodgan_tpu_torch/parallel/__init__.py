@@ -1,2 +1,3 @@
-"""Data parallelism across processes (``mesh``) and striped loading
-(``multihost``): the port of floodgan_tpu/parallel's data axis."""
+"""The ``(data, spatial)`` mesh across processes (``mesh``), the spatial
+axis's halo exchanges and shard-wise layers (``spatial``) and striped
+loading (``multihost``): the port of floodgan_tpu/parallel."""

@@ -1,25 +1,33 @@
-"""Data parallelism across processes: the port of the ``data`` axis of
+"""The ``(data, spatial)`` mesh across processes: the port of
 floodgan_tpu/parallel/mesh.py.
 
-The JAX package shards each batch over the ``data`` axis of a GSPMD mesh,
-replicates the parameters and the optimizer state, and lets XLA insert the
-gradient all-reduce.  The port runs one process per card instead, in one
-``torch.distributed`` process group (NCCL on the card, gloo on the CPU):
+The JAX package shards each batch over the ``data`` axis of a GSPMD mesh
+and the image height over its ``spatial`` axis, replicates the parameters
+and the optimizer state, and lets XLA insert every collective.  The port
+runs one process per rank instead, in one ``torch.distributed`` process
+group (NCCL on the card, gloo on the CPU).  Rank ``r`` of a ``D x S`` mesh
+has data index ``r // S`` and spatial index ``r % S``, the device order of
+JAX's ``np.array(devs).reshape(-1, spatial)``.
 
 - ``DataMesh.shard_batch`` keeps this rank's contiguous stripe of a global
   batch, the samples GSPMD's process-major device order gives it
-  (``multihost.process_stripe``);
+  (``multihost.process_stripe``), and ``shard_images`` also keeps its rows
+  of each image, JAX's ``shard_images``;
 - ``DataMesh.replicate_`` broadcasts parameters from rank 0 at start;
 - the trainers all-reduce each network's gradients explicitly after their
-  backward (``all_reduce_grads_``: one coalesced SUM, divided by the world
-  size, JAX's psum-mean), and report all-reduced loss means;
+  backward (``all_reduce_grads_``: one coalesced SUM over every rank,
+  divided by the data size: the spatial ranks' partial gradients add up,
+  the data ranks' gradients are averaged, JAX's psum-mean), and report
+  loss means the same way;
 - batch norm reads global-batch statistics through ``all_reduce_sum_``
   (``ops.nn_ops.batch_norm``), as GSPMD's batch norm averages over the
-  sharded batch.
+  sharded batch;
+- with ``spatial > 1`` the mesh carries a ``parallel.spatial.SpatialGroup``
+  per stripe: the halo exchanges of the convolutions and the cross-shard
+  instance-norm statistics (``parallel.spatial``).
 
-The ``spatial`` axis (H sharded with halo exchanges and cross-shard norm
-statistics) is not ported: ``make_mesh(spatial > 1)`` raises.
-
+A collective moves device tensors on NCCL and host copies on gloo, which
+has no CUDA send or receive: the transport follows the group's backend.
 A process group is joined with ``init_process_group`` (an explicit
 ``tcp://`` address, world size and rank), or from a torchrun environment
 with ``join_environment``; ``spawn`` starts one process per rank on this
@@ -40,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from floodgan_tpu_torch.parallel.multihost import process_stripe
+from floodgan_tpu_torch.parallel.spatial import SpatialGroup, row_stripe
 
 DEFAULT_TIMEOUT_S = 600.0
 
@@ -48,20 +57,21 @@ def backend_for(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def check_devices(num_devices: int, device_type: str) -> None:
-    """One rank per card: ``num_devices`` above the cards present raises
-    as JAX's ``make_mesh`` does.  CPU ranks are processes, not devices."""
-    if device_type == "cuda":
-        have = torch.cuda.device_count()
-        if num_devices > have:
-            raise ValueError(f"requested {num_devices} devices, have {have}")
-
-
-def _spatial_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "spatial parallelism (num_spatial_devices > 1) is not ported to floodgan_tpu_torch yet: "
-        "it waits for ROADMAP.md Queue 1 item 12 (Multi-GPU, the spatial axis)"
-    )
+def check_devices(num_devices: int, device_type: str, backend: Optional[str] = None,
+                  devices: Optional[Sequence[int]] = None) -> None:
+    """One NCCL rank per card: more NCCL ranks than cards, or two on one
+    card (NCCL refuses them), raise as JAX's ``make_mesh`` does.  Gloo
+    ranks may share a card; CPU ranks are processes, not devices."""
+    if device_type != "cuda":
+        return
+    have = torch.cuda.device_count()
+    cards = list(range(num_devices)) if devices is None else list(devices)
+    nccl = (backend or "nccl") == "nccl"
+    if nccl and len(set(cards)) < len(cards):
+        raise ValueError(f"NCCL takes one rank per card; cards {cards} repeat one (use the gloo backend "
+                         "to put several ranks on one card)")
+    if any(c >= have for c in cards) or (nccl and num_devices > have):
+        raise ValueError(f"requested {num_devices} devices, have {have}")
 
 
 def free_port() -> int:
@@ -71,23 +81,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_device(device_type: str, local_rank: int) -> torch.device:
+def _rank_device(device_type: str, card: int) -> torch.device:
     if device_type == "cuda":
-        check_devices(local_rank + 1, "cuda")
-        torch.cuda.set_device(local_rank)
-        return torch.device("cuda", local_rank)
+        check_devices(card + 1, "cuda", backend="gloo")
+        torch.cuda.set_device(card)
+        return torch.device("cuda", card)
     return torch.device(device_type)
 
 
 def init_process_group(world_size: int, rank: int, device_type: str, port: int,
-                       timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+                       timeout_s: float = DEFAULT_TIMEOUT_S, backend: Optional[str] = None,
+                       card: Optional[int] = None) -> torch.device:
     """Join the ``world_size``-rank group at ``tcp://localhost:port`` as
-    ``rank``; returns this rank's device (on the card, card ``rank``, made
-    the current one)."""
-    device = _rank_device(device_type, rank)
+    ``rank`` over ``backend`` (None: NCCL on the card, gloo on the CPU);
+    returns this rank's device (on the card, card ``card``, by default card
+    ``rank``, made the current one)."""
+    device = _rank_device(device_type, rank if card is None else card)
     dist.init_process_group(
-        backend_for(device_type), init_method=f"tcp://localhost:{port}", world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s),
+        backend or backend_for(device_type), init_method=f"tcp://localhost:{port}", world_size=world_size,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
     )
     return device
 
@@ -105,8 +117,9 @@ def join_environment(device_type: str = "cuda", timeout_s: float = DEFAULT_TIMEO
 
 
 def _rank_main(rank: int, fn: Callable, world_size: int, device_type: str, port: int, timeout_s: float,
-               args: Sequence) -> None:
-    device = init_process_group(world_size, rank, device_type, port, timeout_s=timeout_s)
+               args: Sequence, backend: Optional[str], cards: Optional[Sequence[int]]) -> None:
+    device = init_process_group(world_size, rank, device_type, port, timeout_s=timeout_s, backend=backend,
+                                card=None if cards is None else cards[rank])
     try:
         fn(rank, device, *args)
     finally:
@@ -114,17 +127,21 @@ def _rank_main(rank: int, fn: Callable, world_size: int, device_type: str, port:
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence = (), device_type: str = "cuda",
-          timeout_s: float = DEFAULT_TIMEOUT_S, join_timeout_s: Optional[float] = None) -> None:
+          timeout_s: float = DEFAULT_TIMEOUT_S, join_timeout_s: Optional[float] = None,
+          backend: Optional[str] = None, cards: Optional[Sequence[int]] = None) -> None:
     """Run ``fn(rank, device, *args)`` in ``world_size`` new processes, one
-    per rank (card ``rank`` on the card), in one group over localhost.
-    ``fn`` must be importable by name.  When a process fails the others
-    are stopped and this raises; past ``join_timeout_s`` (None: no limit)
-    all are killed and ``TimeoutError`` is raised."""
+    per rank, in one group over localhost: over ``backend`` (None: NCCL on
+    the card, gloo on the CPU), rank ``r`` on card ``cards[r]`` (None: card
+    ``r``).  ``fn`` must be importable by name.  When a process fails the
+    others are stopped and this raises; past ``join_timeout_s`` (None: no
+    limit) all are killed and ``TimeoutError`` is raised."""
     import torch.multiprocessing as mp
 
-    check_devices(world_size, device_type)
-    ctx = mp.start_processes(_rank_main, args=(fn, world_size, device_type, free_port(), timeout_s, tuple(args)),
-                             nprocs=world_size, join=False, start_method="spawn")
+    check_devices(world_size, device_type, backend=backend or backend_for(device_type), devices=cards)
+    ctx = mp.start_processes(
+        _rank_main, args=(fn, world_size, device_type, free_port(), timeout_s, tuple(args), backend,
+                          None if cards is None else tuple(cards)),
+        nprocs=world_size, join=False, start_method="spawn")
     deadline = None if join_timeout_s is None else time.monotonic() + join_timeout_s
     while not ctx.join(timeout=0.5):
         if deadline is not None and time.monotonic() > deadline:
@@ -137,76 +154,123 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), device_type: str =
 
 
 def make_mesh(num_devices: Optional[int] = None, spatial: int = 1, device=None) -> "DataMesh":
-    """The data mesh over the process group this process has joined:
-    ``num_devices`` ranks (None: the group's size), one per card.  The
-    validation of JAX's ``make_mesh``; ``spatial > 1`` is not ported."""
-    if spatial < 1:
+    """The ``(data, spatial)`` mesh over the process group this process has
+    joined: ``num_devices`` ranks (None: the group's size), ``spatial`` of
+    them per spatial group.  The validation of JAX's ``make_mesh``.  With
+    ``spatial > 1`` every rank builds every data group and every spatial
+    group, in one order (``dist.new_group`` is collective), each with
+    ``DEFAULT_TIMEOUT_S``."""
+    if spatial < 1 or (num_devices is not None and num_devices % spatial):
         raise ValueError(f"spatial={spatial} must divide the {num_devices}-device mesh")
-    if spatial > 1:
-        raise _spatial_not_ported()
     if not dist.is_initialized():
         raise RuntimeError(
-            f"a {num_devices}-rank data mesh runs one process per rank: start them with "
+            f"a {num_devices}-rank mesh runs one process per rank: start them with "
             "floodgan_tpu_torch.parallel.mesh.spawn, python -m floodgan_tpu_torch.cli.train "
-            "--num_data_devices N, or torchrun"
+            "--num_data_devices D --num_spatial_devices S, or torchrun"
         )
     world = dist.get_world_size()
     if num_devices is not None and num_devices != world:
         raise ValueError(f"requested {num_devices} devices, the process group has {world} ranks")
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"spatial={spatial} must divide the {world}-device mesh")
+    backend = dist.get_backend()
     if device is None:
-        device = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
+        device = torch.device("cuda", torch.cuda.current_device()) if backend == "nccl" else "cpu"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    check_devices(world, device.type)
-    return DataMesh(device)
+    check_devices(world, device.type, backend=backend,
+                  devices=[device.index] * world if device.type == "cuda" and backend != "nccl" else None)
+    return DataMesh(device, spatial)
+
+
+def _staged(t: torch.Tensor, backend: str, op: Callable[[torch.Tensor], None]) -> torch.Tensor:
+    """``op(t)`` in place: on ``t`` itself, or on a host copy copied back
+    where the backend is gloo and ``t`` lies on the card."""
+    if backend == "gloo" and t.is_cuda:
+        host = t.cpu()
+        op(host)
+        t.copy_(host)
+    else:
+        op(t)
+    return t
 
 
 class DataMesh:
-    """This rank's view of the data axis: ``size`` ranks, this one's
-    ``rank`` and ``device``, and the collectives the trainers call."""
+    """This rank's view of the mesh: ``size`` data stripes and this rank's
+    ``data_index``, ``spatial_size`` ranks per stripe and
+    this rank's ``spatial_index``, its world ``rank`` among ``world_size``,
+    its ``device``, the ``spatial`` group (None for ``spatial_size`` 1) and
+    the collectives the trainers call."""
 
-    def __init__(self, device):
+    def __init__(self, device, spatial: int = 1):
         self.device = torch.device(device)
-        self.size = dist.get_world_size()
+        self.backend = dist.get_backend()
+        self.world_size = dist.get_world_size()
         self.rank = dist.get_rank()
+        self.spatial_size = spatial
+        self.size = self.world_size // spatial
+        self.data_index, self.spatial_index = divmod(self.rank, spatial)
+        self.spatial = None
+        if spatial > 1:
+            timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+            # Every rank creates every group, data groups first, in one order.
+            for s in range(spatial):
+                dist.new_group(list(range(s, self.world_size, spatial)), timeout=timeout)
+            for d in range(self.size):
+                ranks = list(range(d * spatial, (d + 1) * spatial))
+                group = dist.new_group(ranks, timeout=timeout)
+                if d == self.data_index:
+                    self.spatial = SpatialGroup(group, ranks, self.spatial_index, self.backend)
 
     def stripe(self, global_batch: int) -> tuple:
-        return process_stripe(global_batch, self.rank, self.size)
+        return process_stripe(global_batch, self.data_index, self.size)
 
     def shard_batch(self, t):
         """This rank's contiguous stripe of a global batch (leading axis)."""
         lo, hi = self.stripe(t.shape[0])
         return t[lo:hi]
 
+    def shard_images(self, t):
+        """JAX's ``shard_images`` for this rank: its stripe of a global NHWC
+        batch, and of each image its rows ``[s·H/S, (s+1)·H/S)``."""
+        t = self.shard_batch(t)
+        if self.spatial_size == 1:
+            return t
+        lo, hi = row_stripe(t.shape[1], self.spatial_index, self.spatial_size)
+        return t[:, lo:hi]
+
     def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t)
-        return t
+        return _staged(t, self.backend, dist.all_reduce)
 
     def all_reduce_grads_(self, params: Iterable[torch.nn.Parameter]) -> None:
-        """Every ``.grad`` of ``params`` replaced by its mean over the
-        ranks: one coalesced all-reduce."""
+        """Every ``.grad`` of ``params`` replaced by its sum over the spatial
+        ranks and its mean over the data stripes: one coalesced all-reduce
+        over every rank, divided by the data size."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        self.all_reduce_sum_(flat)
         flat.div_(self.size)
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
 
     def mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Scalars (this rank's batch means) -> their means over the ranks,
-        the global batch's means for equal stripes."""
+        """Scalars (this rank's batch means, or with a spatial group its
+        share of them) -> the global batch's means: summed over every rank,
+        divided by the data size."""
         keys = list(values)
         stacked = torch.stack([values[k].detach().float() for k in keys])
-        dist.all_reduce(stacked)
+        self.all_reduce_sum_(stacked)
         stacked.div_(self.size)
         return dict(zip(keys, stacked.unbind()))
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The global batch: every rank's stripe, in rank order."""
-        parts = [torch.empty_like(t) for _ in range(self.size)]
+        if self.backend == "gloo" and t.is_cuda:
+            return self.all_gather(t.cpu()).to(t.device)
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
         dist.all_gather(parts, t.contiguous())
         return torch.cat(parts)
 
@@ -215,20 +279,21 @@ class DataMesh:
         """Rank 0's parameters on every rank (one coalesced broadcast)."""
         params = [p for m in modules for p in m.parameters()]
         flat = torch.cat([p.reshape(-1) for p in params])
-        dist.broadcast(flat, 0)
+        _staged(flat, self.backend, lambda t: dist.broadcast(t, 0))
         for p, part in zip(params, flat.split([p.numel() for p in params])):
             p.copy_(part.view_as(p))
 
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` (picklable) on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, 0, device=self.device if self.device.type == "cuda" else None)
+        dist.broadcast_object_list(box, 0, device=self.device if self.backend == "nccl" else None)
         return box[0]
 
 
 def mean_grads(mesh, *modules: torch.nn.Module) -> None:
-    """On a mesh, each module's gradients averaged over the ranks (one
-    all-reduce a module); without one, nothing."""
+    """On a mesh, each module's gradients summed over the spatial ranks and
+    averaged over the data stripes (one all-reduce a module); without one,
+    nothing."""
     if mesh is not None:
         for m in modules:
             mesh.all_reduce_grads_(m.parameters())

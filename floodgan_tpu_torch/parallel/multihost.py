@@ -6,6 +6,8 @@ the epoch number alone, as in ``data.pipeline.BatchLoader``), so no
 coordination traffic is needed; each rank decodes only its contiguous
 stripe of every global batch and yields that stripe on its own card.
 With one rank this is ``BatchLoader`` with the remainder batch dropped.
+On a mesh with a spatial axis every rank of a stripe decodes the stripe's
+images and, after the on-device resize and crop, keeps its own rows.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Iterator
 import numpy as np
 
 from floodgan_tpu_torch.data.pipeline import Batch, BatchLoader
+from floodgan_tpu_torch.parallel.spatial import row_stripe
 
 
 def process_stripe(global_batch: int, process_index: int, process_count: int) -> tuple:
@@ -31,17 +34,21 @@ class MultiHostBatchLoader:
     """Each rank's stripe of every global batch of ``dataset``, on
     ``device``: ``{"input", "output", "names"}`` as ``BatchLoader`` yields
     them, with ``batch_size // process_count`` samples and ``names``
-    covering the local stripe only.  Global batches always tile the ranks
+    covering the local stripe only; with ``spatial_count > 1``, rows
+    ``row_stripe(H, spatial_index, spatial_count)`` of each image.  Global batches always tile the ranks
     (the remainder is dropped).  The stage counters are the local
     loader's."""
 
     drop_remainder = True
 
-    def __init__(self, dataset, batch_size: int, process_index: int = 0, process_count: int = 1, device=None):
+    def __init__(self, dataset, batch_size: int, process_index: int = 0, process_count: int = 1, device=None,
+                 spatial_index: int = 0, spatial_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.process_index = process_index
         self.process_count = process_count
+        self.spatial_index = spatial_index
+        self.spatial_count = spatial_count
         self.stripe = process_stripe(batch_size, process_index, process_count)
         self._local = BatchLoader(dataset, batch_size=batch_size // process_count, device=device)
         self.device = self._local.device
@@ -65,7 +72,15 @@ class MultiHostBatchLoader:
                               [np.zeros(0, np.int64)])
 
     def epoch_iter(self, epoch: int = 0) -> Iterator[Batch]:
-        return self._local.iter_indices(self.local_indices(epoch))
+        batches = self._local.iter_indices(self.local_indices(epoch))
+        if self.spatial_count == 1:
+            return batches
+        return (self._rows(b) for b in batches)
+
+    def _rows(self, batch: Batch) -> Batch:
+        """This spatial rank's rows of each NHWC image of ``batch``."""
+        lo, hi = row_stripe(batch["input"].shape[1], self.spatial_index, self.spatial_count)
+        return {**batch, "input": batch["input"][:, lo:hi], "output": batch["output"][:, lo:hi]}
 
     def __iter__(self) -> Iterator[Batch]:
         """Each plain iteration advances the shuffle epoch, in step on every

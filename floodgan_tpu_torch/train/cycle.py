@@ -64,6 +64,7 @@ from floodgan_tpu_torch.models.registry import (
     generator_returns_mask,
 )
 from floodgan_tpu_torch.parallel.mesh import mean_grads
+from floodgan_tpu_torch.parallel.spatial import not_ported
 from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
@@ -146,6 +147,8 @@ class CycleTrainer:
         self.remat = remat
         self.remat_policy = remat_lib.check_policy(remat_policy, remat_lib.CYCLE_POLICIES)
         self.mesh = mesh
+        if getattr(mesh, "spatial", None) is not None:
+            raise not_ported(f"{model} cycle training (the replay buffers' draws must agree across spatial ranks)")
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device, "CycleTrainer")

@@ -46,6 +46,15 @@ are averaged over the ranks before Adam, batch norm reads the global
 batch's statistics, Pix2Pix's dropout draws the global batch's masks and
 keeps its rows, and the losses returned are the global batch's means.
 The ranks then hold the same parameters step after step.
+
+On a mesh with a spatial axis (``mesh.spatial``, PairedAttention only)
+each rank takes its rows of its stripe's images (``mesh.shard_images``):
+the generator and the D run shard-wise (``models.layers.set_spatial_mesh``),
+each loss is this rank's share of the global mean, and the gradient
+all-reduce sums the spatial ranks' partial gradients and averages over the
+data stripes.  Every rank issues the same exchanges in the same order: the
+D reads, the D-then-G backward and a remat recompute all run on every
+rank.  Pix2Pix raises ``NotImplementedError`` there (ROADMAP.md item 12b).
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import torch
 from floodgan_tpu_torch.core.config import TrainConfig, _check_model, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.core import rng
-from floodgan_tpu_torch.models.layers import DropoutStream, init_weights, set_data_mesh
+from floodgan_tpu_torch.models.layers import DropoutStream, init_weights, set_data_mesh, set_spatial_mesh
 from floodgan_tpu_torch.models.registry import (
     build_discriminator,
     build_generator,
@@ -67,6 +76,7 @@ from floodgan_tpu_torch.models.registry import (
     generator_returns_mask,
 )
 from floodgan_tpu_torch.parallel.mesh import mean_grads
+from floodgan_tpu_torch.parallel.spatial import not_ported
 from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
@@ -116,6 +126,9 @@ class PairedTrainer:
         model = _check_model(model)
         if model_is_cycle(model):
             raise ValueError(f"{model} trains with the cycle step, not the paired one")
+        self.spatial = getattr(mesh, "spatial", None)  # a data-only mesh has none
+        if self.spatial is not None and model == "pix2pix":
+            raise not_ported("Pix2Pix (its 8-level U-Net reaches 1x1, narrower than a shard)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         self.model = model
@@ -140,6 +153,8 @@ class PairedTrainer:
             mesh.replicate_(self.generator, self.discriminator)
             set_data_mesh(self.generator, mesh)
             set_data_mesh(self.discriminator, mesh)
+            set_spatial_mesh(self.generator, self.spatial)
+            set_spatial_mesh(self.discriminator, self.spatial)
         self.gen_opt = adam(self.generator.parameters(), cfg.adam_b1, cfg.adam_b2)
         self.disc_opt = adam(self.discriminator.parameters(), cfg.adam_b1, cfg.adam_b2)
 
@@ -188,8 +203,9 @@ class PairedTrainer:
     def train_step(self, input_stack, output_image, lr, epoch: int = 0, step: int = 0) -> Dict[str, torch.Tensor]:
         """One D-then-G step on an NHWC batch (numpy or tensor) at learning
         rate ``lr``; Pix2Pix's dropout masks are those of (``epoch``,
-        ``step``).  Returns the four losses under the JAX keys, as f32
-        scalars on the trainer's device."""
+        ``step``).  On a mesh the batch is this rank's part
+        (``mesh.shard_images`` of the global batch).  Returns the four
+        losses under the JAX keys, as f32 scalars on the trainer's device."""
         cfg = self.cfg
         x = self._nchw(input_stack)
         y = self._nchw(output_image)
@@ -198,16 +214,16 @@ class PairedTrainer:
 
             # ---- discriminator update ----
             self.disc_opt.zero_grad(set_to_none=True)
-            loss_d_syn = lsgan_mse(self.disc_apply(torch.cat([x, synthetic.detach()], 1)), 0.0)
-            loss_d_real = lsgan_mse(self.disc_apply(torch.cat([x, y], 1)), 1.0)
+            loss_d_syn = lsgan_mse(self.disc_apply(torch.cat([x, synthetic.detach()], 1)), 0.0, self.spatial)
+            loss_d_real = lsgan_mse(self.disc_apply(torch.cat([x, y], 1)), 1.0, self.spatial)
             ((loss_d_syn + loss_d_real) * cfg.disc_weight).backward()
             mean_grads(self.mesh, self.discriminator)
             apply_adam(self.disc_opt, lr)
 
             # ---- generator update against the updated D ----
             self.gen_opt.zero_grad(set_to_none=True)
-            loss_g_adv = lsgan_mse(self.disc_apply(torch.cat([x, synthetic], 1)), 1.0)
-            loss_g_l1 = l1_loss(synthetic, y) * cfg.l1_weight
+            loss_g_adv = lsgan_mse(self.disc_apply(torch.cat([x, synthetic], 1)), 1.0, self.spatial)
+            loss_g_l1 = l1_loss(synthetic, y, self.spatial) * cfg.l1_weight
             (loss_g_adv + loss_g_l1).backward(inputs=list(self.generator.parameters()))
             mean_grads(self.mesh, self.generator)
             apply_adam(self.gen_opt, lr)
@@ -227,11 +243,15 @@ class PairedTrainer:
         out.  Pix2Pix's dropout draws from a fresh seed-47 generator, so
         every call with one input shape draws the same masks."""
         x = self._nchw(input_stack)
-        set_data_mesh(self.generator, None)  # inference reads its own batch's statistics
+        # Inference reads its own batch's statistics, on whole images: one
+        # rank alone may run it (a plot, an evaluation), so no collective.
+        set_data_mesh(self.generator, None)
+        set_spatial_mesh(self.generator, None)
         try:
             return self._generate(x)
         finally:
             set_data_mesh(self.generator, self.mesh)
+            set_spatial_mesh(self.generator, self.spatial)
 
     def _generate(self, x: torch.Tensor):
         with full_f32():

@@ -31,6 +31,14 @@ generators every region ends in an op that saves a tensor after it ran
 its forward), so each recompute runs every forward kernel of its region
 once more.
 
+On the mesh's spatial axis a segment holds halo exchanges and the
+instance norms' all-reduces (``parallel.spatial``).  Its recompute issues
+them again, inside the backward.  Every rank's graph is the same, so the
+backward reaches each recompute at the same point, and the early stop, at
+the same saved tensor, on every rank: the exchanges pair up.  The
+recomputed statistics are the forward's, bit for bit (the same sums in the
+same order).
+
 An explicit ``torch.Generator`` (Pix2Pix's dropout) is not among the
 states a checkpoint stashes; ``replayable`` rewinds it at the start of the
 region, so the recompute draws the masks the forward drew.

@@ -120,12 +120,17 @@ def test_plots_write_their_artifacts(runs):
 def test_not_ported_paths_name_their_roadmap_items(runs, tmp_path):
     kw = dict(data_path=runs["port_path"], metadata_dir=os.path.join(runs["port_path"], "metadata"),
               device="cpu", **KW)
-    # Item 12's data axis is ported: N ranks are N processes, so one process alone refuses N = 2;
-    # its spatial axis still raises.
-    with pytest.raises(RuntimeError, match="one process per rank"):
-        Model(model="PairedAttention", num_data_devices=2, **{**kw, "batch_size": 2})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Model(model="PairedAttention", num_spatial_devices=2, **kw)
+    # Item 12's data and spatial axes are ported: N ranks are N processes, so one process alone
+    # refuses a mesh of 2; the networks of item 12b refuse the spatial axis.
+    for axes in (dict(num_data_devices=2, batch_size=2), dict(num_spatial_devices=2)):
+        with pytest.raises(RuntimeError, match="one process per rank"):
+            Model(model="PairedAttention", **{**kw, **axes})
+    from floodgan_tpu_torch.models.layers import set_spatial_mesh
+    from floodgan_tpu_torch.models.registry import build_generator
+    from floodgan_tpu_torch.parallel.spatial import SpatialGroup
+
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        set_spatial_mesh(build_generator("cyclegan", 9), SpatialGroup(None, [0, 1], 0, "gloo"))
     # Item 1 (remat) is ported: tests/test_torch_remat.py holds it.
     for extra, policy in ((dict(model="PairedAttention", remat=True), "boundaries"),
                           (dict(model="CycleGAN", remat=True), "convs")):

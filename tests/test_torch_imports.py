@@ -35,7 +35,7 @@ def test_scan_covers_the_port():
         "models/unet.py", "train/seg.py", "eval/metrics.py", "eval/lpips.py", "api/segmentation.py",
         "cli/evaluate.py", "cli/segment.py", "utils/tables.py", "core/rng.py", "models/pix2pix.py",
         "models/cyclegan.py", "train/cycle.py", "api/group.py", "cli/compare.py", "train/remat.py",
-        "parallel/mesh.py", "parallel/multihost.py", "ckpt/sharded.py", "pre_processing/__init__.py",
+        "parallel/mesh.py", "parallel/multihost.py", "parallel/spatial.py", "ckpt/sharded.py", "pre_processing/__init__.py",
         "pre_processing/metadata.py", "pre_processing/stack.py", "pre_processing/scripts.py",
         "pre_processing/explore.py", "utils/torch_export.py", "tools/serve_bench.py",
     )} | {"chip_smoke.py"} <= names

@@ -210,7 +210,8 @@ def test_backward_on_cpu_tensors_launches_nothing(rng):
     out, _ = kernels.attention_compose(c, torch.zeros(1, 10, 4, 4), torch.zeros(1, 3, 4, 4))
     out.sum().backward()
     assert kernels.LAUNCHES == before
-    assert set(kernels.LAUNCHES) == {"in_act", "in_bwd", "compose", "compose_bwd", "copy"}
+    assert set(kernels.LAUNCHES) == {"in_act", "in_bwd", "compose", "compose_bwd", "copy",
+                                     "in_stats", "in_apply", "in_bwd_stats", "in_bwd_apply"}
 
 
 def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():

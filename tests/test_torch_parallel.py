@@ -36,7 +36,7 @@ against the JAX package.
   2-device data mesh from the same init: step-1 losses within 1e-5.
 - ``spawn`` fails fast, and does not hang, when a rank dies while the other
   waits for it in a collective; ``make_mesh`` checks its arguments as JAX's
-  does, and the spatial axis is not ported.
+  does, the spatial axis included (tests/test_torch_spatial*.py run it).
 """
 
 import os
@@ -274,8 +274,15 @@ def test_a_dead_rank_fails_the_run_instead_of_hanging():
 
 
 def test_make_mesh_checks_like_jax(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mesh_lib.make_mesh(2, spatial=2)
+    # The spatial axis validates as JAX's make_mesh does: it must divide the world.
+    for bad in (3, 0):
+        with pytest.raises(ValueError, match=f"spatial={bad} must divide the 8-device mesh"):
+            mesh_lib.make_mesh(8, spatial=bad)
+        with pytest.raises(ValueError):
+            jax_make_mesh(8, spatial=bad)
+    with pytest.raises(RuntimeError, match="one process per rank"):  # valid, but no group joined
+        mesh_lib.make_mesh(8, spatial=4)
+    assert jax_make_mesh(8, spatial=4).shape == {"data": 2, "spatial": 4}
     with pytest.raises(RuntimeError, match="one process per rank"):
         mesh_lib.make_mesh(2, device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
