@@ -9,8 +9,8 @@ content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
 64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
 evaluation with the segmentation U-Net, the other three families (Pix2Pix
 and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
-data-parallel path, the spatial axis (image height over 2 ranks), the
-comparison CLI, the offline ETL with a training
+data-parallel path, the spatial axis (image height over 2 ranks, every
+family and the U-Net), the comparison CLI, the offline ETL with a training
 epoch on its dataset and the .pth.tar export, and serving under load (the
 serve bench and HTTP).
 It fails unless every phase passes:
@@ -157,6 +157,27 @@ It fails unless every phase passes:
               step 1 bit for bit against the plain step).  Prints each rank's
               step time (one card, host-staged: not a measure of scaling),
               the exchanges' share of an instrumented step and peak memory.
+              Then the other networks on the same ranks, at [families]'
+              widths, each one-process reference run first on the card and
+              freed: AttentionGAN (one rank's step launches exactly
+              SPATIAL_FAMILY_LAUNCHES: K1s/K1a/K2s/K2a 112 each, K3 and K4
+              4, no fused K1/K2; 162 each and 6/6 with the identity loss;
+              under remat convs SPATIAL_CONVS_LAUNCHES, 212/212/112/112 and
+              8/4), step-1 losses within TOL_SPATIAL_STEP1 of one process,
+              step 2 within TOL_SPATIAL_UPDATED, the two ranks' buffer rows
+              after step 1 against one process's buffer, the parameters
+              equal bit for bit after 6 steps, its step time, exchange share
+              and peak beside [families]'; CycleGAN (104 each, no K3/K4);
+              Pix2Pix (no launch; its deep U-Net levels gathered and
+              replicated; losses as above, the ranks bit for bit after 3
+              steps); the U-Net's predict_logits at 1024^2, batch 1, f32 on
+              rows against one process (TOL_EVAL_LOGITS of max |logit|) and
+              one train_step; the bilinear U-Net's forward at 128^2 on rows.
+              Then python -m floodgan_tpu_torch.cli.train --model=AttentionGAN
+              --num_spatial_devices 2 --dist_backend gloo on [cli]'s tiles
+              (1 epoch): its .sharded directory holds each buffer as two row
+              pieces, and a Model resumed from it on 2 gloo ranks holds
+              every leaf bit for bit, each rank its buffer rows.
 15. compare - python -m floodgan_tpu_torch.cli.compare --compare models
               --calculate_metrics on [cli]'s epoch-3 PairedAttention .ckpt
               and [families]' three, with [eval]'s seg .ckpt, on [cli]'s 8
@@ -343,6 +364,29 @@ SPATIAL_STEP_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 1, "compose_bwd": 
                          "in_stats": 34, "in_apply": 34, "in_bwd_stats": 34, "in_bwd_apply": 34}
 SPATIAL_REMAT_LAUNCHES = {**SPATIAL_STEP_LAUNCHES, "compose": 2, "in_stats": 34 + 25, "in_apply": 34 + 25}
 SPATIAL_TIMED = 3
+# The other networks on the same 2 gloo ranks ([families]' widths: 512^2,
+# global batch 8, bf16, topography all).  Each IN site of a rank's cycle
+# step that runs fused K1/K2 in one process ([families]: AttentionGAN 112,
+# 162 with the identity loss, CycleGAN 104) runs as the partial forms, K1s
+# and K1a forward, K2s and K2a backward; the compose is pixel-wise and runs
+# on rows as in one process.  Under remat convs each of the 4 generator
+# reads runs its 25 forward sites and its compose again in the backward.
+# Pix2Pix and the U-Net launch nothing, as in one process.
+
+
+def _as_partial(counts: dict) -> dict:
+    """One process's launches of a step as a spatial rank's: the fused IN
+    forms' counts moved to the partial forms."""
+    return {**counts, "in_act": 0, "in_bwd": 0, "in_stats": counts["in_act"], "in_apply": counts["in_act"],
+            "in_bwd_stats": counts["in_bwd"], "in_bwd_apply": counts["in_bwd"]}
+
+
+SPATIAL_FAMILY_LAUNCHES = {k: _as_partial(v) for k, v in FAMILY_STEP_LAUNCHES.items()}
+SPATIAL_CONVS_LAUNCHES = _as_partial(REMAT_CYCLE_LAUNCHES)
+SPATIAL_CYCLE_STEPS = 6        # AttentionGAN: 1 counted, 1 compared, SPATIAL_TIMED timed, 1 instrumented
+SPATIAL_P2P_STEPS = 3          # Pix2Pix: 1 counted, 1 compared, 1 more before the ranks' parameters are compared
+SPATIAL_UNET = 2 * S           # the segment CLI's 1024^2, batch 1, f32
+SPATIAL_BILINEAR = 128         # the bilinear U-Net's forward, batch 2, f32
 TOL_STATS = 1e-5           # K1s/K2s's sums against the plain version's, of the sums of |.|: another order
 # The ranks' losses against one process's.  Those that read no updated
 # parameter (step 1's D losses and L1): the shards' convolutions may take
@@ -2153,6 +2197,14 @@ class _CheckedMesh:
         self._count("mean")
         return out
 
+    def data_reduce_sum_(self, t):
+        before = t.clone()
+        self._mesh.data_reduce_sum_(t)
+        if not torch.equal(before, t):
+            self.changed.append("data_reduce_sum_")
+        self._count("data_reduce_sum_")
+        return t
+
     def all_gather(self, t):
         out = self._mesh.all_gather(t)
         if not torch.equal(out, t):
@@ -2478,7 +2530,170 @@ def _spatial_rank(rank: int, device, out_dir: str) -> None:
     torch.cuda.synchronize()
     res["remat_counts"] = dict(kernels.LAUNCHES)
     res["remat_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del trainer
+    res["families"] = _spatial_families(mesh, device, x, y)
     torch.save(res, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
+
+
+def _spatial_seg_inputs(size: int, batch: int):
+    """A seeded NHWC (image, {0, 1} mask) pair for the U-Net."""
+    rng = np.random.default_rng(SEED + 17)
+    return (rng.standard_normal((batch, size, size, 3), dtype=np.float32) * 0.5,
+            (rng.random((batch, size, size, 1)) > 0.6).astype(np.float32))
+
+
+def _bilinear_unet():
+    from floodgan_tpu_torch.models.layers import init_weights
+    from floodgan_tpu_torch.models.unet import UNet
+
+    return init_weights(UNet(bilinear=True), torch.Generator().manual_seed(SEED)).to(CARD)
+
+
+def _spatial_baselines() -> dict:
+    """The one-process references of the other networks on the card, each
+    freed before the next: AttentionGAN's and Pix2Pix's first two steps
+    (and AttentionGAN's buffers after step 1), the U-Net's logits at
+    SPATIAL_UNET and the bilinear U-Net's forward at SPATIAL_BILINEAR."""
+    from floodgan_tpu_torch.core.device import full_f32
+    from floodgan_tpu_torch.train.seg import SegTrainer
+    from floodgan_tpu_torch.train.paired import to_nchw
+
+    x, y = (torch.from_numpy(a).to(CARD) for a in _spatial_inputs())
+    out = {}
+    for model in ("attentiongan", "pix2pix"):
+        t = _family_trainer(model, CARD, S, "bfloat16")
+        out[model] = [_losses(t.train_step(x, y, LR, epoch=1, step=0))]
+        if model == "attentiongan":
+            out["buffers"] = {k: getattr(t, k).images[:BATCH].float().cpu() for k in ("pre_buffer", "post_buffer")}
+        out[model].append(_losses(t.train_step(x, y, LR, epoch=1, step=1)))
+        del t
+        torch.cuda.empty_cache()
+    del x, y
+    image, _ = _spatial_seg_inputs(SPATIAL_UNET, 1)
+    seg = SegTrainer(seed=SEED, device=CARD)
+    out["logits"] = seg.predict_logits(image).cpu()
+    del seg
+    torch.cuda.empty_cache()
+    image, _ = _spatial_seg_inputs(SPATIAL_BILINEAR, 2)
+    with torch.no_grad(), full_f32():
+        out["bilinear"] = _bilinear_unet()(to_nchw(image, CARD)).cpu()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_families(mesh, device, x, y) -> dict:
+    """One rank's share of the other networks on the spatial axis: the
+    cycle families, Pix2Pix and the U-Net, each trainer freed before the
+    next (module docstring, phase 14)."""
+    from floodgan_tpu_torch.core.device import full_f32
+    from floodgan_tpu_torch.models.layers import set_data_mesh, set_spatial_mesh
+    from floodgan_tpu_torch.ops import kernels
+    from floodgan_tpu_torch.train.paired import to_nchw
+    from floodgan_tpu_torch.train.seg import SegTrainer
+
+    def zero():
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+
+    def counted():
+        torch.cuda.synchronize()
+        return dict(kernels.LAUNCHES)
+
+    def free():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    res = {}
+    free()
+    t = _family_trainer("attentiongan", device, S, "bfloat16", mesh=mesh)
+    zero()
+    losses = [_losses(t.train_step(x, y, LR, epoch=1, step=0))]
+    res["attentiongan_counts"] = counted()
+    res["buffers"] = {k: getattr(t, k).images[:BATCH].float().cpu() for k in ("pre_buffer", "post_buffer")}
+    losses.append(_losses(t.train_step(x, y, LR, epoch=1, step=1)))
+    res["cycle_step_ms"] = _timed_steps(lambda i: t.train_step(x, y, LR, epoch=1, step=2 + i), SPATIAL_TIMED)
+    clock = _ExchangeClock(mesh.spatial)
+    t0 = time.perf_counter()
+    t.train_step(x, y, LR, epoch=1, step=2 + SPATIAL_TIMED)
+    torch.cuda.synchronize()
+    res["cycle_instrumented_ms"] = (time.perf_counter() - t0) * 1e3
+    clock.stop()
+    res["cycle_exchange_ms"], res["cycle_exchange_calls"] = clock.seconds * 1e3, clock.calls
+    res["cycle_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["attentiongan_losses"] = losses
+    res["cycle_params"] = torch.cat([p.detach().reshape(-1).float().cpu() for _, m in _family_nets(t)
+                                     for p in m.parameters()])
+    del t
+    for name, kw in (("identity", {"add_identity_loss": True}), ("convs", {"remat": True, "remat_policy": "convs"}),
+                     ("cyclegan", {})):
+        free()
+        t = _family_trainer("cyclegan" if name == "cyclegan" else "attentiongan", device, S, "bfloat16", mesh=mesh, **kw)
+        zero()
+        res[f"{name}_losses"] = _losses(t.train_step(x, y, LR, epoch=1, step=0))
+        res[f"{name}_counts"] = counted()
+        res[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        del t
+    free()
+    t = _family_trainer("pix2pix", device, S, "bfloat16", mesh=mesh)
+    zero()
+    losses = [_losses(t.train_step(x, y, LR, epoch=1, step=0))]
+    res["pix2pix_counts"] = counted()
+    losses.append(_losses(t.train_step(x, y, LR, epoch=1, step=1)))
+    res["pix2pix_step_ms"] = _timed_steps(lambda i: t.train_step(x, y, LR, epoch=1, step=2 + i),
+                                          SPATIAL_P2P_STEPS - 2)
+    res["pix2pix_losses"] = losses
+    res["pix2pix_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["pix2pix_params"] = torch.cat([p.detach().reshape(-1).float().cpu() for _, m in _family_nets(t)
+                                       for p in m.parameters()])
+    del t
+    free()
+    image, mask = (mesh.shard_images(a) for a in _spatial_seg_inputs(SPATIAL_UNET, 1))
+    seg = SegTrainer(seed=SEED, mesh=mesh)
+    zero()
+    res["logits"] = seg.predict_logits(image).cpu()
+    res["seg_metrics"] = _losses(seg.train_step(image, mask, SEG_LR))
+    res["seg_counts"] = counted()
+    res["seg_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del seg
+    free()
+    image, _ = _spatial_seg_inputs(SPATIAL_BILINEAR, 2)
+    net = _bilinear_unet()
+    set_data_mesh(net, mesh)
+    set_spatial_mesh(net, mesh.spatial)
+    with torch.no_grad(), full_f32():
+        res["bilinear"] = net(to_nchw(mesh.shard_images(image), device)).cpu()
+    del net
+    torch.cuda.empty_cache()
+    return res
+
+
+def _spatial_resume_rank(rank: int, device, out_dir: str, ckpt: str, root: str) -> None:
+    """A ``Model`` resumed on one of 2 gloo ranks from the spatial CLI's
+    ``.sharded`` directory: a digest of each leaf of its state (its buffers
+    hold this rank's rows) and those rows, to ``resume_rank{r}.pt``."""
+    import hashlib
+    import os
+
+    from floodgan_tpu_torch.api.model import Model
+    from floodgan_tpu_torch.utils.jax_params import cycle_state_to_jax
+
+    model = Model(load_pretrained_model=True, pretrained_model_path=ckpt, dataset_subset="usa", dataset_dem="best",
+                  data_path=root, metadata_dir=f"{root}/metadata", resize=S, batch_size=BATCH,
+                  compute_dtype="bfloat16", num_spatial_devices=SPATIAL, device=str(device))
+    digests = {}
+    for path, leaf in _flat_leaves(cycle_state_to_jax(model.trainer)):
+        digests[path] = hashlib.sha256(np.ascontiguousarray(getattr(leaf, "bits", leaf)).tobytes()).hexdigest()
+    torch.save({"digests": digests, "rows": model.trainer.buffer_rows, "epoch": model.starting_epoch},
+               os.path.join(out_dir, f"resume_rank{rank}.pt"))
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
 
 
 def _nccl_two_ranks_one_card(rank: int, port: int, out_dir: str) -> None:
@@ -2503,7 +2718,7 @@ def _nccl_two_ranks_one_card(rank: int, port: int, out_dir: str) -> None:
     os._exit(0)  # a refused NCCL communicator is not torn down
 
 
-def phase_spatial(smi, train_figures) -> tuple:
+def phase_spatial(smi, train_figures, family_figures, root) -> tuple:
     """The spatial axis (module docstring, phase 14).  Returns (the launch
     counts of the two ranks' counted steps, the partial forms' JSON rows)."""
     import os
@@ -2517,12 +2732,15 @@ def phase_spatial(smi, train_figures) -> tuple:
     rows = _spatial_kernels()
     torch.cuda.empty_cache()
 
-    # The baseline: one process on the card, the whole batch, the same init.
+    # The baselines: one process on the card, the whole batch, the same init.
     x, y = (torch.from_numpy(a).cuda() for a in _spatial_inputs())
     base = PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED)
     base_losses = [_losses(base.train_step(x, y, LR, epoch=1, step=i)) for i in range(2)]
     del base, x, y
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_base = _spatial_baselines()
+    say("spatial", f"the one-process references of the other networks: {time.perf_counter() - t0:.1f} s")
 
     out = tempfile.mkdtemp(prefix="floodgan_spatial_")
     try:
@@ -2548,7 +2766,7 @@ def phase_spatial(smi, train_figures) -> tuple:
 
         t0 = time.perf_counter()
         mesh_lib.spawn(_spatial_rank, SPATIAL, args=(out,), device_type="cuda", backend="gloo",
-                       cards=[0] * SPATIAL, timeout_s=300, join_timeout_s=400)
+                       cards=[0] * SPATIAL, timeout_s=300, join_timeout_s=900)
         wall = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out, f"spatial_rank{r}.pt")) for r in range(SPATIAL)]
     finally:
@@ -2593,8 +2811,152 @@ def phase_spatial(smi, train_figures) -> tuple:
                        f"between two synchronises); peak memory {res['peak_gib']:.3f} GiB, under remat "
                        f"{res['remat_peak_gib']:.3f} GiB ({smi})")
     say("spatial", f"one process at the whole batch ([train]): step ms {train_figures[0]:.1f}, peak "
-                   f"{train_figures[1]:.3f} GiB ({smi}); the phase took {time.perf_counter() - t_phase:.1f} s")
+                   f"{train_figures[1]:.3f} GiB ({smi})")
+    for r, res in enumerate(ranks):
+        for k in total:
+            total[k] += sum(res["families"][f"{name}_counts"][k]
+                            for name in ("attentiongan", "identity", "convs", "cyclegan", "pix2pix", "seg"))
+    _check_spatial_families(smi, [res["families"] for res in ranks], family_base, family_figures)
+    _spatial_cli(smi, root)
+    say("spatial", f"the phase took {time.perf_counter() - t_phase:.1f} s")
     return total, rows
+
+
+def _rel(got: dict, want: dict) -> dict:
+    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+
+def _check_spatial_families(smi, ranks, base, family_figures) -> None:
+    """The other networks' results from the two ranks against the
+    one-process references (module docstring, phase 14)."""
+    a, b = ranks
+    expected = {"attentiongan": SPATIAL_FAMILY_LAUNCHES["attentiongan"],
+                "identity": SPATIAL_FAMILY_LAUNCHES["attentiongan+identity"], "convs": SPATIAL_CONVS_LAUNCHES,
+                "cyclegan": SPATIAL_FAMILY_LAUNCHES["cyclegan"], "pix2pix": SPATIAL_FAMILY_LAUNCHES["pix2pix"],
+                "seg": NO_LAUNCHES}
+    for r, res in enumerate(ranks):
+        for name, want in expected.items():
+            check(res[f"{name}_counts"] == want, f"rank {r}: one {name} step launched {res[f'{name}_counts']}, "
+                                                  f"expected {want}")
+    for key in ("attentiongan_losses", "identity_losses", "convs_losses", "cyclegan_losses", "pix2pix_losses",
+                "seg_metrics"):
+        check(a[key] == b[key], f"the ranks report other {key}: {a[key]} and {b[key]}")
+        values = a[key] if isinstance(a[key], list) else [a[key]]
+        check(all(np.isfinite(v) for step in values for v in step.values()), f"{key}: {a[key]}")
+    check(torch.equal(a["cycle_params"], b["cycle_params"]), "AttentionGAN: the ranks' parameters differ")
+    check(torch.equal(a["pix2pix_params"], b["pix2pix_params"]), "Pix2Pix: the ranks' parameters differ")
+    # Step 1 of the cycle step reads no updated parameter (G first, the D
+    # losses on the reals and the pre-update synthetics); Pix2Pix's G loss
+    # reads the D that Adam has just moved.
+    for model, updated in (("attentiongan", ()), ("pix2pix", ("losses_generator_synthetic",))):
+        for i in range(2):
+            rel = _rel(a[f"{model}_losses"][i], base[model][i])
+            tols = {k: TOL_SPATIAL_STEP1 if i == 0 and k not in updated else TOL_SPATIAL_UPDATED for k in rel}
+            say("spatial", f"{FAMILIES[model]} step {i + 1}: the ranks against one process, rel diff "
+                           + ", ".join(f"{k} {rel[k]:.3g} (tol {tols[k]:.3g})" for k in rel))
+            check(all(rel[k] <= tols[k] for k in rel), f"{model} step {i + 1}: the ranks against one process: {rel}")
+    diffs = {}
+    for key, want in base["buffers"].items():
+        got = torch.cat([a["buffers"][key], b["buffers"][key]], 2)
+        check(got.shape == want.shape, f"{key}: rows {tuple(got.shape)} against {tuple(want.shape)}")
+        diffs[key] = (float((got - want).abs().mean() / want.abs().mean()), float((got - want).abs().max()))
+    say("spatial", "AttentionGAN buffers after step 1, the two ranks' rows against one process's "
+                   f"{BATCH} images: " + ", ".join(f"{k} mean |diff| / mean |image| {m:.3g} (tol "
+                                                   f"{TOL_SPATIAL_STEP1:.3g}), max |diff| {x:.3g}"
+                                                   for k, (m, x) in diffs.items()))
+    check(all(m <= TOL_SPATIAL_STEP1 for m, _ in diffs.values()), f"AttentionGAN buffers: {diffs}")
+    for key, want in (("logits", base["logits"]), ("bilinear", base["bilinear"])):
+        axis = 1 if key == "logits" else 2  # NHWC logits, NCHW forward
+        got = torch.cat([a[key], b[key]], axis)
+        err = float((got - want).abs().max())
+        tol = TOL_EVAL_LOGITS * float(want.abs().max())
+        check(got.shape == want.shape and err <= tol, f"U-Net {key} on rows: {tuple(got.shape)}, max_abs_diff {err}")
+        say("spatial", f"U-Net {'predict_logits at ' + str(SPATIAL_UNET) + '^2, batch 1' if key == 'logits' else 'bilinear forward at ' + str(SPATIAL_BILINEAR) + '^2, batch 2'}, "
+                       f"f32, on rows against one process: max_abs_diff {err:.3g} (tol {tol:.3g}, "
+                       f"{TOL_EVAL_LOGITS:g} of max |logit|)")
+    say("spatial", f"AttentionGAN launches of one rank's step {a['attentiongan_counts']}; with the identity loss "
+                   f"{a['identity_counts']}; under remat convs {a['convs_counts']}; CycleGAN {a['cyclegan_counts']}; "
+                   f"Pix2Pix and the U-Net none; the ranks hold equal parameters bit for bit after "
+                   f"{SPATIAL_CYCLE_STEPS} AttentionGAN and {SPATIAL_P2P_STEPS} Pix2Pix steps")
+    one = family_figures["attentiongan"]
+    for r, res in enumerate(ranks):
+        med, lo, hi = res["cycle_step_ms"]
+        say("spatial", f"rank {r}: AttentionGAN step ms median {med:.1f} over {SPATIAL_TIMED} (min {lo:.1f}, max "
+                       f"{hi:.1f}) -- one card, two processes sharing it, halos and sums staged through the host over "
+                       f"gloo: not a measure of scaling; an instrumented step {res['cycle_instrumented_ms']:.1f} ms, "
+                       f"of it {res['cycle_exchange_ms']:.1f} ms in {res['cycle_exchange_calls']} exchanges and "
+                       f"reductions ({res['cycle_exchange_ms'] / res['cycle_instrumented_ms']:.3f}); peak memory "
+                       f"{res['cycle_peak_gib']:.3f} GiB, with the identity loss {res['identity_peak_gib']:.3f}, "
+                       f"under remat convs {res['convs_peak_gib']:.3f}, CycleGAN {res['cyclegan_peak_gib']:.3f}, "
+                       f"Pix2Pix {res['pix2pix_peak_gib']:.3f} (step ms {res['pix2pix_step_ms'][0]:.1f}), the U-Net "
+                       f"at {SPATIAL_UNET}^2 {res['seg_peak_gib']:.3f} ({smi})")
+    say("spatial", f"one process at the whole batch ([families]): AttentionGAN step ms {one[0]:.1f}, peak "
+                   f"{one[1]:.3f} GiB; Pix2Pix step ms {family_figures['pix2pix'][0]:.1f}, peak "
+                   f"{family_figures['pix2pix'][1]:.3f} GiB ({smi})")
+
+
+def _spatial_cli(smi, root: str) -> None:
+    """python -m floodgan_tpu_torch.cli.train --model=AttentionGAN
+    --num_spatial_devices 2 --dist_backend gloo on [cli]'s tiles (1 epoch):
+    its .sharded directory holds each buffer as two row pieces, and a
+    Model resumed from it on 2 gloo ranks holds its state bit for bit,
+    each rank its rows of the buffers."""
+    import glob
+    import hashlib
+    import os
+
+    from floodgan_tpu_torch.ckpt import _msgpack
+    from floodgan_tpu_torch.ckpt.sharded import load_checkpoint_sharded
+    from floodgan_tpu_torch.cli import train as cli_train
+    from floodgan_tpu_torch.parallel import mesh as mesh_lib
+
+    before = set(glob.glob(os.path.join(root, "models", "AttentionGAN_*.sharded")))
+    t0 = time.perf_counter()
+    done = cli_train.main(["--model=AttentionGAN", "--topography=all", "--dataset_subset=usa", "--dataset_dem=best",
+                           f"--data_path={root}", f"--metadata_dir={root}/metadata", f"--resize={S}",
+                           f"--batch_size={BATCH}", "--compute_dtype=bfloat16", "--num_epochs=1",
+                           "--save_model_interval=1", f"--num_spatial_devices={SPATIAL}", "--dist_backend=gloo",
+                           "--device=cuda"])
+    wall = time.perf_counter() - t0
+    (ckpt,) = set(glob.glob(os.path.join(root, "models", "AttentionGAN_*.sharded"))) - before
+    check(done is None and sorted(os.listdir(ckpt)) == ["meta.json", "shards_p0.msgpack", "shards_p1.msgpack"],
+          f"the spatial CLI's directory: {sorted(os.listdir(ckpt))}")
+    h = S // SPATIAL
+    for r in range(SPATIAL):
+        with open(os.path.join(ckpt, f"shards_p{r}.msgpack"), "rb") as f:
+            pieces = _msgpack.unpackb(f.read())
+        for key in ("pre_buffer/images", "post_buffer/images"):
+            index = [e["index"] for e in pieces.get(key, [])]
+            check(index == [[[0, 50], [r * h, (r + 1) * h], [0, S], [0, 9]]], f"rank {r}'s {key} pieces: {index}")
+    meta, state = load_checkpoint_sharded(ckpt)
+    check(meta["starting_epoch"] == 2 and all(np.isfinite(v[0]) for v in meta["all_losses"].values()),
+          f"the spatial CLI's meta: {meta['starting_epoch']}, {meta['all_losses']}")
+    out = tempfile.mkdtemp(prefix="floodgan_resume_")
+    try:
+        t1 = time.perf_counter()
+        mesh_lib.spawn(_spatial_resume_rank, SPATIAL, args=(out, ckpt, root), device_type="cuda", backend="gloo",
+                       cards=[0] * SPATIAL, timeout_s=300, join_timeout_s=400)
+        resume_s = time.perf_counter() - t1
+        resumed = [torch.load(os.path.join(out, f"resume_rank{r}.pt")) for r in range(SPATIAL)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for r, res in enumerate(resumed):
+        lo, hi = res["rows"]
+        want = {}
+        for path, leaf in _flat_leaves(state):
+            arr = getattr(leaf, "bits", leaf)
+            if path.endswith("_buffer/images"):
+                arr = arr[:, lo:hi]
+            want[path] = hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+        differ = sorted(k for k in want if res["digests"].get(k) != want[k])
+        check((lo, hi) == (r * h, (r + 1) * h) and res["epoch"] == 2 and not differ
+              and set(res["digests"]) == set(want), f"rank {r} resumed: rows {lo}-{hi}, differs in {differ[:5]}")
+    size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 2**20
+    say("spatial", f"python -m floodgan_tpu_torch.cli.train --model=AttentionGAN --num_spatial_devices {SPATIAL} "
+                   f"--dist_backend gloo ({CLI_TILE}^2 tiles resized to {S}^2, batch {BATCH}, bf16, 1 epoch): "
+                   f"{wall:.2f} s with start-up, a .sharded directory of {size:.1f} MiB whose buffers are "
+                   f"row pieces [0, {h}) and [{h}, {S}); resumed on {SPATIAL} gloo ranks in {resume_s:.2f} s, "
+                   f"{len(want)} leaves bit for bit on each rank (its rows of the buffers) ({smi})")
 
 
 def _write_geotiff(path: str, array: np.ndarray, x_min: float, y_max: float, px_w: float, px_h: float) -> None:
@@ -3054,7 +3416,7 @@ def main() -> int:
         families_counts, family_ckpts, family_figures = phase_families(smi, root, tests, step_rate)
         remat_counts = phase_remat(smi, root, family_figures["attentiongan"], train_figures)
         dp_counts = phase_dp(smi)
-        spatial_counts, spatial_rows = phase_spatial(smi, train_figures)
+        spatial_counts, spatial_rows = phase_spatial(smi, train_figures, family_figures, root)
         rows.update(spatial_rows)
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
         etl_counts, etl_ckpt = phase_etl(smi, root)

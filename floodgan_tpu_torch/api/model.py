@@ -31,11 +31,15 @@ train with ``train.paired.PairedTrainer``, CycleGAN and AttentionGAN with
 - the spatial axis (floodgan_tpu/api/model.py:237-249): with
   ``num_spatial_devices=S > 1`` the ``D x S`` ranks (D =
   ``num_data_devices``) each hold rows ``[s·H/S, (s+1)·H/S)`` of their
-  stripe's images, PairedAttention only (the other families raise,
-  ROADMAP.md item 12b).  H must divide by S, as in JAX, and the shard
-  height H/S by 8, with H/S >= 24 (the PatchGAN's levels;
-  ``parallel.spatial``).  Plots run the generator on whole images on rank
-  0 alone.
+  stripe's images, every family.  H must divide by S, as in JAX, and the
+  shard height H/S must pass each network's shard check
+  (``parallel.spatial``: the PatchGAN's levels need H/S divisible by 8 and
+  >= 24, the ResNet generators H/S divisible by 4 and >= 8, the Pix2Pix
+  U-Net at least one halving of H/S), which names the layer that cannot
+  take it; Pix2Pix also needs H and W divisible by 256, as on one
+  process.  A cycle family's replay buffers hold each rank's rows, and
+  its ``.sharded`` checkpoints hold them as row pieces.  Plots run the
+  generator on whole images on rank 0 alone.
 
 Losses stay on the device within an epoch, with one transfer at its end.
 ``epoch_stats`` records, per epoch, its wall time, the seconds the loop
@@ -80,11 +84,13 @@ from floodgan_tpu_torch.data.pipeline import create_flood_dataset
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.eval.lpips import load_lpips
 from floodgan_tpu_torch.eval.metrics import MASK_METRICS, MS_SSIM_MIN_SIDE, MaskMetricsAccumulator
+from floodgan_tpu_torch.parallel import spatial as spatial_lib
 from floodgan_tpu_torch.parallel.mesh import make_mesh
 from floodgan_tpu_torch.parallel.multihost import MultiHostBatchLoader
 from floodgan_tpu_torch.train.cycle import CycleTrainer
 from floodgan_tpu_torch.train.paired import PairedTrainer
 from floodgan_tpu_torch.utils.jax_params import (
+    cycle_buffer_rows,
     cycle_state_to_jax,
     load_cycle_state,
     load_paired_state,
@@ -114,6 +120,34 @@ CYCLE_LOSS_KEYS = (
     "losses_discriminator_post_synthetic",
 )
 IDENTITY_LOSS_KEYS = ("losses_identity_post", "losses_identity_pre")
+
+
+# Each family's networks' shard checks (parallel.spatial), generator first.
+_SHARD_CHECKS = {
+    "pix2pix": (spatial_lib.check_pix2pix_rows, spatial_lib.check_patchgan_rows),
+    "cyclegan": (spatial_lib.check_cyclegan_rows, spatial_lib.check_patchgan_rows),
+    "attentiongan": (spatial_lib.check_generator_rows, spatial_lib.check_patchgan_rows),
+    "pairedattention": (spatial_lib.check_generator_rows, spatial_lib.check_patchgan_rows),
+}
+
+
+def check_shards(model: str, image_hw, num_spatial_devices: int) -> None:
+    """Raise the ValueError that names the first layer of ``model``'s
+    networks that cannot take a shard of ``image_hw``'s height over
+    ``num_spatial_devices`` ranks, before any rank builds a trainer."""
+    height, width = image_hw
+    if height % num_spatial_devices:
+        raise ValueError("image height must be divisible by num_spatial_devices")
+    rows = height // num_spatial_devices
+    if model == "pix2pix" and (height % 256 or width % 256):
+        raise ValueError(f"Pix2Pix U-Net needs spatial dims divisible by 256 (8 stride-2 levels); got "
+                         f"{height}x{width}")
+    try:
+        for check in _SHARD_CHECKS[_check_model(model)]:
+            check(rows)
+    except ValueError as e:
+        raise ValueError(f"a shard of {rows} rows (height {height} over {num_spatial_devices} spatial ranks): "
+                         f"{e}") from None
 
 
 def loss_keys(model: str, add_identity_loss: bool = False) -> tuple:
@@ -250,14 +284,7 @@ class Model:
         # remat_policy=None keeps each trainer's default (floodgan_tpu/api/model.py:200-215).
         image_hw = self._image_hw()  # and the square-source guard
         if num_spatial_devices > 1:
-            if image_hw[0] % num_spatial_devices:
-                raise ValueError("image height must be divisible by num_spatial_devices")
-            rows = image_hw[0] // num_spatial_devices
-            if rows % 8 or rows < 24:
-                raise ValueError(
-                    f"a shard of {rows} rows (height {image_hw[0]} over {num_spatial_devices} spatial ranks): the "
-                    "PatchGAN's three stride-2 levels and two k4 s1 p1 convs need H/S divisible by 8 and >= 24"
-                )
+            check_shards(self.model, image_hw, num_spatial_devices)
         policy = {} if remat_policy is None else {"remat_policy": remat_policy}
         if self.model_is_cycle:
             self.trainer = CycleTrainer(
@@ -484,7 +511,9 @@ class Model:
             model_path = self.mesh.broadcast_object(model_path + ".sharded")
             if self.is_main:
                 _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
-            save_checkpoint_sharded(model_path, meta, state, self.mesh.rank, self.mesh.world_size)
+            rows = cycle_buffer_rows(self.trainer) if self.model_is_cycle else None
+            save_checkpoint_sharded(model_path, meta, state, self.mesh.rank, self.mesh.world_size, rows=rows,
+                                    writes_rows=self.mesh.data_index == 0)
             return model_path
         _safe_print(f"Saving {self.prettify_model_name()} model to {model_path}")
         if self._async_ckpt is not None:

@@ -14,9 +14,13 @@ package reads the other's.
 Responsibility is JAX's rule: a process writes a piece iff it holds
 replica 0 of it, so each datum is written once.  On a ``D x S`` mesh
 (data and spatial axes) every parameter and optimizer leaf is replicated
-and replica 0 lives on rank 0, so rank 0 writes every leaf whole, the
-other ranks write an empty map, and the process count is the world size,
-``D x S``.  Every process
+and replica 0 lives on rank 0, so rank 0 writes every leaf whole, and the
+process count is the world size, ``D x S``.  A leaf sharded over rows
+(the cycle trainer's replay buffers on a spatial axis, each rank holding
+rows ``[start, stop)`` of axis 1 of every image) is written piecewise:
+each spatial rank of data stripe 0 holds replica 0 of its rows and writes
+them as one piece, whose index says which rows they are; the manifest
+records the whole leaf's shape.  Every process
 writes its own file, atomically (``.tmp`` and a rename).  Process 0 then
 removes the shard files of a larger topology saved into the same
 directory before; a loader ignores files at or above the recorded process
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -92,18 +96,32 @@ def _write_atomic(path: str, chunks: List) -> None:
 
 
 def save_checkpoint_sharded(ckpt_dir: str, meta: Dict[str, Any], state: Dict[str, Any],
-                            process_index: int = 0, process_count: int = 1) -> None:
+                            process_index: int = 0, process_count: int = 1,
+                            rows: Optional[Dict[str, Tuple[int, int, int]]] = None,
+                            writes_rows: bool = False) -> None:
     """Write this process's shard file and, on process 0, the manifest.
-    Every process of the run calls it with the same (replicated) state."""
+    Every process of the run calls it with the same replicated leaves;
+    ``rows`` maps the path of each leaf this process holds only rows of to
+    (start, stop, height): its axis 1 is rows [start, stop) of ``height``.
+    ``writes_rows``: this process holds replica 0 of those rows and writes
+    them."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = {path: _leaf_array(leaf) for path, leaf in _flatten(host_snapshot(state)).items()}
+    rows = rows or {}
     manifest, mine = {}, {}
     for path, arr in flat.items():
         bf16 = isinstance(arr, BF16Array)
         data = np.require(arr.bits if bf16 else arr, requirements="C")
-        manifest[path] = {"shape": list(data.shape), "dtype": "bfloat16" if bf16 else data.dtype.name}
-        if process_index == 0:
-            mine[path] = [{"index": [[0, d] for d in data.shape], "data": memoryview(data.reshape(-1)).cast("B")}]
+        index = [[0, d] for d in data.shape]
+        shape = list(data.shape)
+        if path in rows:
+            start, stop, height = rows[path]
+            if data.shape[1] != stop - start:
+                raise ValueError(f"leaf '{path}' holds {data.shape[1]} rows, not rows [{start}, {stop})")
+            index[1], shape[1] = [start, stop], height
+        manifest[path] = {"shape": shape, "dtype": "bfloat16" if bf16 else data.dtype.name}
+        if (writes_rows if path in rows else process_index == 0):
+            mine[path] = [{"index": index, "data": memoryview(data.reshape(-1)).cast("B")}]
     chunks: List = []
     _msgpack.pack_into(mine, chunks)
     _write_atomic(os.path.join(ckpt_dir, _shard_file(process_index)), chunks)

@@ -14,11 +14,14 @@ unless ``--device cpu`` is given.
 ``--remat [--remat_policy P]`` recomputes the generator reads in the
 backward.  ``--num_data_devices D --num_spatial_devices S`` trains on a
 ``D x S`` mesh of cards of this host: the batch is split over D stripes
-and each image's height over S ranks (PairedAttention only for S > 1).
+and each image's height over S ranks (any family).
 The command starts D x S processes, one per card, in one NCCL group over
 localhost (gloo processes with ``--device cpu``), and fails as soon as one
-of them does.  Started by torchrun (``WORLD_SIZE`` = D x S and ``RANK``
-set), it joins that group instead.  ``--batch_size`` is the global batch.
+of them does.  ``--dist_backend gloo`` on the card puts rank r on card r
+modulo the card count instead, so that several ranks may share a card
+(NCCL refuses two ranks on one), their collectives staged through the
+host.  Started by torchrun (``WORLD_SIZE`` = D x S and ``RANK`` set), it
+joins that group instead.  ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -48,13 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=47, help="Seed for parameter initialisation (per-epoch data order is keyed by the epoch number alone)")
     parser.add_argument("--batch_size", type=int, default=1, help="Per-step global batch size (the reference hardcodes 1)")
     parser.add_argument("--num_data_devices", type=int, default=1, help="Data-parallel mesh size (shards the batch over cards, one process per card)")
-    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial mesh size (shards the image height axis over cards; total cards = data x spatial; PairedAttention only)")
+    parser.add_argument("--num_spatial_devices", type=int, default=1, help="Spatial mesh size (shards the image height axis over cards; total cards = data x spatial; every model)")
     parser.add_argument("--metadata_dir", default=None, help="Directory holding dataset_split.csv (defaults to ./metadata like the reference)")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"], help="Activation/flop dtype (f32 master params either way)")
     parser.add_argument("--remat", action="store_true", default=False, help="Rematerialise generator activations (lets cycle models train at 512^2 with batch > 1 in 16GB HBM)")
     parser.add_argument("--remat_policy", default=None, choices=["convs", "boundaries", "full"], help="With --remat: what to save across the backward. Default = the trainer's measured default (paired: boundaries, cycle: convs). 'full' saves nothing (replays the whole forward) — the high-resolution/big-batch choice (1024^2 batch 8 on one 16GB chip)")
     parser.add_argument("--async_checkpoint", action="store_true", default=False, help="Write checkpoints on a background thread (training continues while the file lands)")
     parser.add_argument("--profile_dir", default=None, help="Write a torch.profiler Chrome trace of training into this directory")
+    parser.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"], help="Process-group backend of a mesh: nccl on the card and gloo on the CPU by default; gloo on the card lets ranks share a card, with collectives staged through the host")
     parser.add_argument("--device", default=None, help="Where to train: the card by default (cuda); 'cpu' runs the kernels' plain PyTorch versions")
     return parser
 
@@ -65,7 +69,7 @@ def _train(args):
 
     args = argparse.Namespace(**vars(args))
     profile_dir = args.profile_dir
-    del args.profile_dir
+    del args.profile_dir, args.dist_backend
     args.training_model = True
     train_model = api_model.Model(**vars(args))
     with trace(profile_dir):
@@ -99,11 +103,17 @@ def main(argv=None):
         from floodgan_tpu_torch.parallel import mesh
 
         device_type = torch_device_type(args.device)
-        device = mesh.join_environment(device_type)
+        backend = args.dist_backend
+        device = mesh.join_environment(device_type, backend=backend)
         if device is not None:  # torchrun started this rank
             args.device = str(device)
             return _train(args)
-        mesh.spawn(_rank_train, world, args=(args,), device_type=device_type)
+        cards = None
+        if backend == "gloo" and device_type == "cuda":
+            import torch
+
+            cards = [r % torch.cuda.device_count() for r in range(world)]
+        mesh.spawn(_rank_train, world, args=(args,), device_type=device_type, backend=backend, cards=cards)
         return None
     return _train(args)
 

@@ -13,11 +13,13 @@ and a leaky ReLU; it launches no hand-written kernel.  Conditioning is the
 caller's concatenation: the conditional D of Pix2Pix and PairedAttention
 reads the input stack and the RGB image, 9 + 3 channels.
 
-With a spatial group (instance norm only; ``models.layers.set_spatial_mesh``)
-x holds this rank's rows: each k4 s2 p1 conv reads one halo row each side,
-each k4 s1 p1 conv one above and two below, zero-padded at the image's
-edges, so the last shard's logit rows are two fewer than the others'; the
-instance norms reduce over the group.
+With a spatial group (``models.layers.set_spatial_mesh``) x holds this
+rank's rows: each k4 s2 p1 conv reads one halo row each side, each k4 s1
+p1 conv one above and two below, zero-padded at the image's edges, so the
+last shard's logit rows are two fewer than the others'; the instance norms
+reduce over the group, and the batch norms over the data stripes and the
+group, each counting the rows its shard really holds (``norm3`` follows
+the first k4 s1 p1 conv, one row short on the last shard).
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ data mesh can make them global.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,48 +55,51 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 
 class _BatchNorm(torch.autograd.Function):
-    """Training-mode batch norm whose statistics, and their gradient, a data
-    mesh can sum over the ranks.  Each rank's (count, mean, variance) comes
-    from one Welford pass; the global mean is the count-weighted mean of
-    the means, the global variance the ranks' variances about it (the
-    pairwise form of Chan et al.); ATen's inference-mode batch norm then
-    normalises with them in one pass.  The backward takes the two channel
-    sums (of g and of g * x̂) from ATen's batch-norm backward reduction,
-    sums them over the ranks, and forms dx from the global means.  Without
-    a mesh the same arithmetic runs with no sum over ranks.  Saves x and
+    """Training-mode batch norm whose statistics, and their gradient, a mesh
+    can sum over the ranks.  Each rank's (count, mean, variance) comes from
+    one Welford pass; the global count is the ranks' counts summed (a
+    rank's rows may be fewer than another's), the global mean the
+    count-weighted mean of the means, the global variance the ranks'
+    variances about it (the pairwise form of Chan et al.); ATen's
+    inference-mode batch norm then normalises with them in one pass.  The
+    backward takes the two channel sums (of g and of g * x̂) from ATen's
+    batch-norm backward reduction, sums them over the same ranks, and forms
+    dx from the global means.  ``reduce(t)`` sums ``t`` over the ranks in
+    place; without it the same arithmetic runs with no sum.  Saves x and
     the two statistics, as ATen's batch norm does."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, mesh):
+    def forward(ctx, x, scale, bias, eps, reduce):
         work = torch.promote_types(x.dtype, torch.float32)
         x32 = x.to(work)
         count = x.numel() // x.shape[1]
         var, mean = torch.var_mean(x32, dim=_BN_DIMS, correction=0)
-        mean_sum = mean * count
-        if mesh is not None:
-            mesh.all_reduce_sum_(mean_sum)
-        total = count * (1 if mesh is None else mesh.size)
-        global_mean = mean_sum / total
+        # The count rides with the sums: one reduction for both.
+        mean_sum = torch.cat([mean * count, mean.new_full((1,), count)])
+        if reduce is not None:
+            reduce(mean_sum)
+        total = mean_sum[-1]
+        global_mean = mean_sum[:-1] / total
         sq = (var + (mean - global_mean).square()) * count
-        if mesh is not None:
-            mesh.all_reduce_sum_(sq)
+        if reduce is not None:
+            reduce(sq)
         global_var = sq / total
         y = F.batch_norm(x32, global_mean, global_var, scale.to(work), bias.to(work), training=False, eps=eps)
-        ctx.save_for_backward(x, global_mean, torch.rsqrt(global_var + eps), scale)
-        ctx.total, ctx.eps, ctx.mesh, ctx.bias_dtype = total, eps, mesh, bias.dtype
+        ctx.save_for_backward(x, global_mean, torch.rsqrt(global_var + eps), scale, total)
+        ctx.eps, ctx.reduce, ctx.bias_dtype = eps, reduce, bias.dtype
         return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x, mean, invstd, scale = ctx.saved_tensors
+        x, mean, invstd, scale, total = ctx.saved_tensors
         work = torch.promote_types(x.dtype, torch.float32)
         x32, g32, scale32 = x.to(work), g.to(work).contiguous(), scale.to(work)
         _, sum_gx, sum_g = torch.ops.aten.native_batch_norm_backward(
             g32, x32, scale32, None, None, mean, invstd, True, ctx.eps, [False, True, True])
         sums = torch.stack([sum_g, sum_gx])
-        if ctx.mesh is not None:
-            ctx.mesh.all_reduce_sum_(sums)
-        mean_g, mean_gx = (sums / ctx.total).unbind()
+        if ctx.reduce is not None:
+            ctx.reduce(sums)
+        mean_g, mean_gx = (sums / total).unbind()
         a = scale32 * invstd
         # dx = a * (g - mean(g) - x̂ * mean(g * x̂)), with x̂ = (x - mean) * invstd.
         dx = torch.addcmul((-a * mean_g).view(1, -1, 1, 1), x32 - mean.view(1, -1, 1, 1),
@@ -109,17 +112,18 @@ _BN_DIMS = (0, 2, 3)
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
-               mesh=None) -> torch.Tensor:
+               reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """BatchNorm2d in training mode, always: batch statistics over (N, H, W),
     biased variance, no running statistics.  The reference never calls ``.eval()``, so
     inference normalises with the batch's own statistics too, and an
     image's result depends on the images beside it.  The statistics and the
     normalisation run in f32 for a half-precision ``x`` (in ``x``'s own
-    dtype otherwise); the result has ``x``'s dtype.  With a data ``mesh``
-    (``parallel.mesh.DataMesh``) the statistics are those of the global
-    batch, every rank's stripe, as GSPMD's batch norm over a sharded batch
+    dtype otherwise); the result has ``x``'s dtype.  ``reduce`` (a mesh's
+    in-place sum over the ranks whose elements share the statistics:
+    ``DataMesh.all_reduce_sum_`` or ``data_reduce_sum_``) makes them those
+    of the global batch, as GSPMD's batch norm over a sharded batch
     computes them; the same arithmetic runs without one."""
-    return _BatchNorm.apply(x, scale, bias, eps, mesh)
+    return _BatchNorm.apply(x, scale, bias, eps, reduce)
 
 
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:

@@ -20,8 +20,13 @@ JAX's ``np.array(devs).reshape(-1, spatial)``.
   the data ranks' gradients are averaged, JAX's psum-mean), and report
   loss means the same way;
 - batch norm reads global-batch statistics through ``all_reduce_sum_``
-  (``ops.nn_ops.batch_norm``), as GSPMD's batch norm averages over the
-  sharded batch;
+  (``ops.nn_ops.batch_norm``: over data x spatial where a level's rows are
+  sharded) or ``data_reduce_sum_`` (over the data stripes alone, where a
+  level's rows are replicated on every spatial rank), as GSPMD's batch
+  norm averages over the sharded batch;
+- the cycle trainers' replay buffers gather a global batch over the data
+  group (``all_gather``): the ranks with this rank's spatial index, whose
+  stripes are the same rows of every image;
 - with ``spatial > 1`` the mesh carries a ``parallel.spatial.SpatialGroup``
   per stripe: the halo exchanges of the convolutions and the cross-shard
   instance-norm statistics (``parallel.spatial``).
@@ -104,14 +109,16 @@ def init_process_group(world_size: int, rank: int, device_type: str, port: int,
     return device
 
 
-def join_environment(device_type: str = "cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[torch.device]:
+def join_environment(device_type: str = "cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
+                     backend: Optional[str] = None) -> Optional[torch.device]:
     """Join the group a launcher such as torchrun describes (``WORLD_SIZE``,
-    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); returns
-    this rank's device, or None where the environment names no group."""
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) over
+    ``backend`` (None: NCCL on the card, gloo on the CPU); returns this
+    rank's device, or None where the environment names no group."""
     if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
         return None
     device = _rank_device(device_type, int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
-    dist.init_process_group(backend_for(device_type), init_method="env://",
+    dist.init_process_group(backend or backend_for(device_type), init_method="env://",
                             timeout=datetime.timedelta(seconds=timeout_s))
     return device
 
@@ -200,8 +207,9 @@ class DataMesh:
     """This rank's view of the mesh: ``size`` data stripes and this rank's
     ``data_index``, ``spatial_size`` ranks per stripe and
     this rank's ``spatial_index``, its world ``rank`` among ``world_size``,
-    its ``device``, the ``spatial`` group (None for ``spatial_size`` 1) and
-    the collectives the trainers call."""
+    its ``device``, the ``spatial`` group (None for ``spatial_size`` 1), the
+    ``data_group`` of the ranks with its spatial index (None: the world)
+    and the collectives the trainers call."""
 
     def __init__(self, device, spatial: int = 1):
         self.device = torch.device(device)
@@ -212,11 +220,14 @@ class DataMesh:
         self.size = self.world_size // spatial
         self.data_index, self.spatial_index = divmod(self.rank, spatial)
         self.spatial = None
+        self.data_group = None
         if spatial > 1:
             timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
             # Every rank creates every group, data groups first, in one order.
             for s in range(spatial):
-                dist.new_group(list(range(s, self.world_size, spatial)), timeout=timeout)
+                group = dist.new_group(list(range(s, self.world_size, spatial)), timeout=timeout)
+                if s == self.spatial_index:
+                    self.data_group = group
             for d in range(self.size):
                 ranks = list(range(d * spatial, (d + 1) * spatial))
                 group = dist.new_group(ranks, timeout=timeout)
@@ -241,7 +252,13 @@ class DataMesh:
         return t[:, lo:hi]
 
     def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank (data x spatial), in place."""
         return _staged(t, self.backend, dist.all_reduce)
+
+    def data_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group (the ranks with this rank's
+        spatial index), in place; over every rank without a spatial axis."""
+        return _staged(t, self.backend, lambda u: dist.all_reduce(u, group=self.data_group))
 
     def all_reduce_grads_(self, params: Iterable[torch.nn.Parameter]) -> None:
         """Every ``.grad`` of ``params`` replaced by its sum over the spatial
@@ -267,11 +284,13 @@ class DataMesh:
         return dict(zip(keys, stacked.unbind()))
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The global batch: every rank's stripe, in rank order."""
+        """The global batch: every data stripe's ``t``, in stripe order,
+        gathered over the data group, so that with a spatial axis each rank
+        gathers the same rows of every image as its own."""
         if self.backend == "gloo" and t.is_cuda:
             return self.all_gather(t.cpu()).to(t.device)
-        parts = [torch.empty_like(t) for _ in range(self.world_size)]
-        dist.all_gather(parts, t.contiguous())
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
         return torch.cat(parts)
 
     @torch.no_grad()

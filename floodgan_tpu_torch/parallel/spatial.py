@@ -10,18 +10,28 @@ halo exchange and the cross-shard norm statistics itself
   from its neighbours inside the image (``HaloPad``, whose backward sends
   each halo's gradient back and adds it into the rows it came from), and
   by reflect or zero padding at the image's own top and bottom edge only;
-- the layers of the paired path in their row-sharded form: the reflect
-  pad of the reflect convolutions (``reflect_pad2d``), the zero-padded
-  strided and stride-1 convolutions (``conv2d_rows``) and the transposed
-  convolution (``conv_transpose2d_rows``), each exact against the same
-  layer on the whole image;
+- the layers in their row-sharded form, each exact against the same
+  layer on the whole image: the reflect pad of the reflect convolutions
+  (``reflect_pad2d``), the zero-padded strided and stride-1 convolutions
+  (``conv2d_rows``), the k3 s2 p1 op1 transposed convolution of the ResNet
+  generators (``conv_transpose2d_rows``), the k4 s2 p1 one of Pix2Pix
+  (``conv_transpose2d_k4_rows``) and the U-Net's align-corners bilinear
+  upsample (``bilinear_2x_rows``); the U-Net's k2 s2 transposed
+  convolution, its max-pools and every 1x1 or pixel-wise op are local;
+- ``gather_rows`` makes a shard's image whole on every rank of the group
+  (its backward a reduce-scatter) and ``slice_rows`` cuts a replicated
+  image back to this rank's rows: the Pix2Pix U-Net runs its deepest
+  levels, narrower than a shard, replicated (``pix2pix_gather_level``);
 - the instance norms reduce their per-plane sums over the group
-  (``ops.kernels.SpatialInstanceNormAct``), and a loss mean is the local
+  (``ops.kernels.SpatialInstanceNormAct``), batch norm its channel sums
+  over the mesh (``ops.nn_ops.batch_norm``), and a loss mean is the local
   sum over the global element count (``global_numel``).
 
 A layer whose halo is wider than the shard next to it raises a
 ``ValueError`` that names the layer (``check_generator_rows``,
-``check_patchgan_rows``): JAX reshards there, the port does not.
+``check_cyclegan_rows``, ``check_patchgan_rows``, ``check_pix2pix_rows``,
+``check_unet_rows``): JAX reshards there, the port does not, and it never
+gathers a whole image on its own.
 
 Every exchange and reduction of a layer is issued on every rank of the
 group, in the same order; the group's timeout turns a mismatch into an
@@ -36,16 +46,6 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-
-ITEM_12B = (
-    "is not ported to the spatial axis of the mesh (num_spatial_devices > 1) yet: it waits for "
-    "ROADMAP.md Queue 1 item 12b"
-)
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {ITEM_12B}")
-
 
 def row_stripe(height: int, index: int, count: int) -> Tuple[int, int]:
     """Half-open [start, stop) row range of spatial rank ``index`` of
@@ -218,6 +218,93 @@ def conv_transpose2d_rows(x: torch.Tensor, deconv: torch.nn.ConvTranspose2d, gro
     return y if y.shape[2] == rows else y[:, :, :rows].contiguous()  # the IN kernels take whole NCHW planes
 
 
+def conv_transpose2d_k4_rows(x: torch.Tensor, deconv: torch.nn.ConvTranspose2d, group: SpatialGroup,
+                             layer: str) -> torch.Tensor:
+    """The k4 s2 p1 transposed ``deconv`` (Pix2Pix's ups) of the whole image,
+    on this shard: one halo row each side (zero rows at the image's edges),
+    then the transposed convolution with 3 rows of H padding instead of 1,
+    which crops its output to the 2h rows of this shard (output row 2i - 1 +
+    k of input row i, k < 4: rows [2sh, 2sh + 2h) read input rows
+    [sh - 1, sh + h])."""
+    ext = halo_pad(x, 1, 1, 1, 1, "zeros", group, layer)
+    return F.conv_transpose2d(ext, deconv.weight, deconv.bias, stride=deconv.stride,
+                              padding=(3, deconv.padding[1]))
+
+
+def bilinear_2x_rows(x: torch.Tensor, height: int, group: SpatialGroup, layer: str) -> torch.Tensor:
+    """``F.interpolate(scale_factor=2, mode="bilinear", align_corners=True)``
+    of the whole ``height``-row image, on this shard.  Output row o reads
+    source rows at the *global* coordinate o (H - 1) / (2H - 1), which lies
+    in [sh - 1, sh + h] for this shard's rows [2sh, 2sh + 2h): one halo row
+    each side inside the image, none at its edges.  W is interpolated as it
+    is, H row by row with the global weights."""
+    h = x.shape[2]
+    lo = group.index * h
+    up = 0 if group.first else 1
+    ext = halo_pad(x, 1, 1, 0, 0, "zeros", group, layer)
+    ext = F.interpolate(ext, size=(ext.shape[2], 2 * x.shape[3]), mode="bilinear", align_corners=True)
+    scale = (height - 1) / (2 * height - 1) if height > 1 else 0.0
+    src = torch.arange(2 * lo, 2 * (lo + h), dtype=torch.float64) * scale
+    i0 = src.floor().long()
+    frac = (src - i0).to(x.dtype).to(x.device).view(1, 1, -1, 1)
+    i1 = torch.clamp(i0 + 1, max=height - 1)
+    at = (i0 - lo + up).to(x.device), (i1 - lo + up).to(x.device)
+    a, b = ext.index_select(2, at[0]), ext.index_select(2, at[1])
+    return a * (1 - frac) + b * frac
+
+
+class GatherRows(torch.autograd.Function):
+    """The whole image from every rank's rows (an all-gather over the
+    group, concatenated in rank order): the rows become replicated.  The
+    backward is a reduce-scatter: each rank's gradient is that of its own
+    share of the loss, so the group's gradients are summed and each rank
+    keeps its rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.h = group, x.shape[2]
+        host = group._host(x)
+        part = x.cpu().contiguous() if host else x.contiguous()
+        parts = [torch.empty_like(part) for _ in range(group.size)]
+        dist.all_gather(parts, part, group=group.group)
+        out = torch.cat(parts, 2)
+        return out.to(x.device) if host else out
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.group.all_reduce_sum_(g.contiguous().clone())
+        lo = ctx.group.index * ctx.h
+        return total[:, :, lo:lo + ctx.h].contiguous(), None
+
+
+class SliceRows(torch.autograd.Function):
+    """This rank's rows of a replicated image; the backward pads the
+    gradient with zero rows to the whole image, locally (the sum over the
+    group happens once, at the ``GatherRows`` the image came from)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        h = x.shape[2] // group.size
+        ctx.lo, ctx.height = group.index * h, x.shape[2]
+        return x[:, :, ctx.lo:ctx.lo + h].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = g.new_zeros((*g.shape[:2], ctx.height, g.shape[3]))
+        dx[:, :, ctx.lo:ctx.lo + g.shape[2]] = g
+        return dx, None
+
+
+def gather_rows(x: torch.Tensor, group: SpatialGroup) -> torch.Tensor:
+    """The whole image, replicated on every rank of ``group`` (``GatherRows``)."""
+    return GatherRows.apply(x, group)
+
+
+def slice_rows(x: torch.Tensor, group: SpatialGroup) -> torch.Tensor:
+    """This rank's rows of a replicated image (``SliceRows``)."""
+    return SliceRows.apply(x, group)
+
+
 def global_mean(t: torch.Tensor, group: Optional[SpatialGroup]) -> torch.Tensor:
     """The mean of the whole tensor ``t`` is a shard of: this shard's sum
     over the global element count, so that the shares of the group add up
@@ -232,28 +319,76 @@ def _rows_error(layer: str, h: int, need: str) -> ValueError:
     return ValueError(f"{layer}: a shard of {h} rows {need} (the port does not reshard as JAX does)")
 
 
-def check_generator_rows(h: int) -> None:
-    """The attention generator's constraints on its input's shard height:
-    the k7 reflect stem reads 3 rows beyond and reflects 3 (h >= 4), conv2
-    and conv3 stride 2 (h and h/2 even), the trunk's reflect-pad-1 convs at
-    h/4 (h/4 >= 2)."""
+def check_generator_rows(h: int, layers: Tuple[str, str, str] = ("conv1", "conv2", "conv3")) -> None:
+    """The ResNet generators' constraints on their input's shard height
+    (the attention generator's layer names by default, the CycleGAN
+    generator's are conv_in, down1, down2): the k7 reflect stem reads 3
+    rows beyond and reflects 3 (h >= 4), the two k3 s2 p1 downs (h and h/2
+    even), the trunk's reflect-pad-1 convs at h/4 (h/4 >= 2)."""
+    stem, down1, down2 = layers
     if h < 4:
-        raise _rows_error("conv1 (reflect 3, k7)", h, "is shorter than 4")
+        raise _rows_error(f"{stem} (reflect 3, k7)", h, "is shorter than 4")
     if h % 2:
-        raise _rows_error("conv2 (k3 s2 p1)", h, "is odd")
+        raise _rows_error(f"{down1} (k3 s2 p1)", h, "is odd")
     if (h // 2) % 2:
-        raise _rows_error("conv3 (k3 s2 p1)", h // 2, "is odd")
+        raise _rows_error(f"{down2} (k3 s2 p1)", h // 2, "is odd")
     if h // 4 < 2:
         raise _rows_error("trunk (reflect 1, k3)", h // 4, "is shorter than 2")
 
 
+def check_cyclegan_rows(h: int) -> None:
+    """``check_generator_rows`` under the CycleGAN generator's names."""
+    check_generator_rows(h, ("conv_in", "down1", "down2"))
+
+
 def check_patchgan_rows(h: int) -> None:
-    """The PatchGAN's constraints on its input's shard height: three k4 s2
-    p1 levels (h, h/2, h/4 even), then two k4 s1 p1 convs that read 2 rows
-    below and each take one row off the last shard (h/8 >= 3)."""
+    """The PatchGAN's constraints on its input's shard height, either norm:
+    three k4 s2 p1 levels (h, h/2, h/4 even), then two k4 s1 p1 convs that
+    read 2 rows below and each take one row off the last shard (h/8 >= 3)."""
     for level, layer in enumerate(("conv0 (k4 s2 p1)", "conv1 (k4 s2 p1)", "conv2 (k4 s2 p1)")):
         rows = h >> level
         if rows % 2:
             raise _rows_error(layer, rows, "is odd")
     if h // 8 < 3:
         raise _rows_error("conv3/conv4 (k4 s1 p1)", h // 8, "is shorter than 3")
+
+
+PIX2PIX_LEVELS = 8
+
+
+def pix2pix_gather_level(h: int) -> int:
+    """The Pix2Pix U-Net's gather level for an input shard of ``h`` rows:
+    the first down level i (0-7) whose k4 s2 p1 conv cannot halve its
+    shard, because the shard's h / 2^i rows are odd or fewer than 2, or 8
+    where every level halves.  Levels from there down to the innermost and
+    back up run on the gathered image, replicated on every spatial rank;
+    the rest on rows.  At H = 256: S = 2 gives 7 (the innermost conv on the
+    gathered 2-row image), S = 4 gives 6; at H = 512, S = 2 gives 8."""
+    for level in range(PIX2PIX_LEVELS):
+        rows = h >> level
+        if rows < 2 or (h % (2 << level)):
+            return level
+    return PIX2PIX_LEVELS
+
+
+def check_pix2pix_rows(h: int) -> None:
+    """The Pix2Pix U-Net's constraint on its input's shard height: at least
+    the outermost down conv halves the shard (``pix2pix_gather_level`` >
+    0); below that the port would gather the whole image, which it does
+    not."""
+    if pix2pix_gather_level(h) == 0:
+        raise _rows_error("down0_conv (k4 s2 p1)", h, "is odd or shorter than 2")
+
+
+UNET_POOLS = ("down1 (max-pool 2)", "down2 (max-pool 2)", "down3 (max-pool 2)", "down4 (max-pool 2)")
+
+
+def check_unet_rows(h: int) -> None:
+    """The segmentation U-Net's constraints on its input's shard height:
+    four 2x2 max-pools (h, h/2, h/4, h/8 even: the shards' rows then meet
+    at every skip without padding), and the 3x3 convs' one halo row at
+    h/16 (h/16 >= 1)."""
+    for level, layer in enumerate(UNET_POOLS):
+        rows = h >> level
+        if rows % 2 or rows < 2:
+            raise _rows_error(layer, rows, "is odd or shorter than 2")

@@ -39,6 +39,17 @@ batch, as JAX's are: each rank gathers every rank's synthetics, runs the
 same draws and queries on them, and keeps its stripe of the result, so
 the buffers stay identical on every rank.
 
+On a mesh with a spatial axis (``mesh.spatial``) each rank takes its rows
+of its stripe's images (``mesh.shard_images``): the four networks run
+shard-wise (``models.layers.set_spatial_mesh``), each loss is this rank's
+share of the global mean, and each buffer holds this rank's rows of its
+images, (C, H/S, W), gathered over the data group (the ranks with this
+rank's spatial index) so that every spatial rank queries the same images'
+rows with the same draws and makes the same store and replace decisions.
+Every rank issues the same exchanges in the same order: the four
+generator reads, the D reads and a remat recompute all run on every rank.
+``generate`` runs on whole images with no group.
+
 The buffer's per-item draws (a uniform p and a slot) come from
 ``core.rng.epoch(epoch, step)`` on the host: the count is
 known there, so a step's decisions need no device sync and depend on
@@ -56,7 +67,7 @@ import torch
 from floodgan_tpu_torch.core.config import TrainConfig, _check_model, model_is_cycle
 from floodgan_tpu_torch.core.device import full_f32, resolve_device
 from floodgan_tpu_torch.core import rng
-from floodgan_tpu_torch.models.layers import init_weights
+from floodgan_tpu_torch.models.layers import init_weights, set_spatial_mesh
 from floodgan_tpu_torch.models.registry import (
     build_discriminator,
     build_generator,
@@ -64,7 +75,7 @@ from floodgan_tpu_torch.models.registry import (
     generator_returns_mask,
 )
 from floodgan_tpu_torch.parallel.mesh import mean_grads
-from floodgan_tpu_torch.parallel.spatial import not_ported
+from floodgan_tpu_torch.parallel.spatial import row_stripe
 from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
@@ -122,7 +133,8 @@ class ImageBuffer:
 class CycleTrainer:
     """The cycle train step and inference forward of one cycle family.
 
-    ``image_hw`` sizes the replay buffers.  The four networks are drawn by
+    ``image_hw`` (the whole image's) sizes the replay buffers; on a spatial
+    axis each holds this rank's ``buffer_rows`` of it.  The four networks are drawn by
     ``init_weights`` from ``core.rng.init(seed)`` in the
     order G_ab, G_ba, D_pre, D_post (the JAX package splits its init key in
     that order).  ``device=None`` means the card (the mesh's card with a
@@ -147,8 +159,7 @@ class CycleTrainer:
         self.remat = remat
         self.remat_policy = remat_lib.check_policy(remat_policy, remat_lib.CYCLE_POLICIES)
         self.mesh = mesh
-        if getattr(mesh, "spatial", None) is not None:
-            raise not_ported(f"{model} cycle training (the replay buffers' draws must agree across spatial ranks)")
+        self.spatial = getattr(mesh, "spatial", None)  # a data-only mesh has none
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device, "CycleTrainer")
@@ -174,11 +185,17 @@ class CycleTrainer:
         self.disc_post, self.disc_pre = nets["disc_post"].to(self.device), nets["disc_pre"].to(self.device)
         if mesh is not None:
             mesh.replicate_(self.gen_ab, self.gen_ba, self.disc_post, self.disc_pre)
+            for net in (self.gen_ab, self.gen_ba, self.disc_post, self.disc_pre):
+                set_spatial_mesh(net, self.spatial)
         self.gen_params = list(self.gen_ab.parameters()) + list(self.gen_ba.parameters())
         self.gen_opt = adam(self.gen_params, cfg.adam_b1, cfg.adam_b2)
         self.disc_opt = adam(list(self.disc_post.parameters()) + list(self.disc_pre.parameters()),
                              cfg.adam_b1, cfg.adam_b2)
-        h, w = image_hw
+        h, w = self.image_hw = tuple(image_hw)
+        self.buffer_rows = None  # the rows of each buffered image this rank holds (None: all)
+        if self.spatial is not None:
+            self.buffer_rows = row_stripe(h, self.spatial.index, self.spatial.size)
+            h = self.buffer_rows[1] - self.buffer_rows[0]
         shape = (input_channels, h, w)
         self.pre_buffer = ImageBuffer(cfg.buffer_size, shape, self.compute_dtype, self.device)
         self.post_buffer = ImageBuffer(cfg.buffer_size, shape, self.compute_dtype, self.device)
@@ -213,6 +230,8 @@ class CycleTrainer:
     def train_step(self, input_stack, output_image, lr, epoch: int = 0, step: int = 0) -> Dict[str, torch.Tensor]:
         """One G-then-D step on an NHWC batch (numpy or tensor) at learning
         rate ``lr``; the buffers' draws are those of (``epoch``, ``step``).
+        On a mesh the batch is this rank's part (``mesh.shard_images`` of
+        the global batch).
         Returns the losses under the JAX keys, as f32 scalars on the
         trainer's device."""
         cfg = self.cfg
@@ -225,7 +244,7 @@ class CycleTrainer:
 
         real_post = with_cond(y)
         pre_rgb, post_rgb = real_pre[:, :3], y
-        gen = self.gen_apply
+        gen, sp = self.gen_apply, self.spatial
         with full_f32():
             # ---- generator update, against the current Ds ----
             self.gen_opt.zero_grad(set_to_none=True)
@@ -233,10 +252,10 @@ class CycleTrainer:
             syn_pre_c = with_cond(gen(self.gen_ba, real_post))
             rec_post = gen(self.gen_ab, syn_pre_c)
             rec_pre = gen(self.gen_ba, syn_post_c)
-            post_gen = lsgan_mse(self.disc_apply(self.disc_post, syn_post_c), 1.0)
-            pre_gen = lsgan_mse(self.disc_apply(self.disc_pre, syn_pre_c), 1.0)
-            pre_to_post = l1_loss(rec_pre, pre_rgb) * cfg.cycle_weight
-            post_to_pre = l1_loss(rec_post, post_rgb) * cfg.cycle_weight
+            post_gen = lsgan_mse(self.disc_apply(self.disc_post, syn_post_c), 1.0, sp)
+            pre_gen = lsgan_mse(self.disc_apply(self.disc_pre, syn_pre_c), 1.0, sp)
+            pre_to_post = l1_loss(rec_pre, pre_rgb, sp) * cfg.cycle_weight
+            post_to_pre = l1_loss(rec_post, post_rgb, sp) * cfg.cycle_weight
             total = post_gen + pre_gen + pre_to_post + post_to_pre
             losses = {
                 "losses_generator_post": post_gen,
@@ -245,8 +264,8 @@ class CycleTrainer:
                 "losses_post_to_pre_cycle": post_to_pre,
             }
             if self.add_identity_loss:
-                identity_post = l1_loss(gen(self.gen_ab, real_post), post_rgb) * cfg.identity_weight
-                identity_pre = l1_loss(gen(self.gen_ba, real_pre), pre_rgb) * cfg.identity_weight
+                identity_post = l1_loss(gen(self.gen_ab, real_post), post_rgb, sp) * cfg.identity_weight
+                identity_pre = l1_loss(gen(self.gen_ba, real_pre), pre_rgb, sp) * cfg.identity_weight
                 total = total + identity_post + identity_pre
                 losses["losses_identity_post"] = identity_post
                 losses["losses_identity_pre"] = identity_pre
@@ -262,8 +281,8 @@ class CycleTrainer:
             self.disc_opt.zero_grad(set_to_none=True)
             pred_pre = self.disc_apply(self.disc_pre, torch.cat([real_pre, buffered_pre.float()], 0))
             pred_post = self.disc_apply(self.disc_post, torch.cat([real_post, buffered_post.float()], 0))
-            real_pre_loss, syn_pre_loss = lsgan_mse(pred_pre[:b], 1.0), lsgan_mse(pred_pre[b:], 0.0)
-            real_post_loss, syn_post_loss = lsgan_mse(pred_post[:b], 1.0), lsgan_mse(pred_post[b:], 0.0)
+            real_pre_loss, syn_pre_loss = lsgan_mse(pred_pre[:b], 1.0, sp), lsgan_mse(pred_pre[b:], 0.0, sp)
+            real_post_loss, syn_post_loss = lsgan_mse(pred_post[:b], 1.0, sp), lsgan_mse(pred_post[b:], 0.0, sp)
             ((real_pre_loss + syn_pre_loss) * cfg.disc_weight
              + (real_post_loss + syn_post_loss) * cfg.disc_weight).backward()
             mean_grads(self.mesh, self.disc_post, self.disc_pre)
@@ -281,8 +300,9 @@ class CycleTrainer:
     def _query_buffers(self, syn_pre: torch.Tensor, syn_post: torch.Tensor, epoch: int, step: int):
         """The images each D reads beside the reals: each buffer queried
         with the batch's detached synthetics and the (epoch, step) draws.
-        On a mesh the query runs on the gathered global batch on every
-        rank, which keeps its stripe."""
+        On a mesh the query runs on the global batch gathered over the
+        data group (on a spatial axis, of this rank's rows) on every rank,
+        which keeps its stripe."""
         if self.mesh is not None:
             syn_pre, syn_post = self.mesh.all_gather(syn_pre), self.mesh.all_gather(syn_post)
         draws = rng.epoch(epoch, step)
@@ -299,7 +319,12 @@ class CycleTrainer:
         the f32 parameters (cycle.py:481-483): NHWC stack in, (output
         (N,H,W,3), background mask (N,H,W) or None) out."""
         generator = {"ab": self.gen_ab, "ba": self.gen_ba}[direction]
-        with full_f32():
-            res = generator(to_nchw(input_stack, self.device))
+        # On whole images, with no collective: one rank alone may run it.
+        set_spatial_mesh(generator, None)
+        try:
+            with full_f32():
+                res = generator(to_nchw(input_stack, self.device))
+        finally:
+            set_spatial_mesh(generator, self.spatial)
         out, mask = res if self.returns_mask else (res, None)
         return out.permute(0, 2, 3, 1), mask

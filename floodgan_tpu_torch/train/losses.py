@@ -27,8 +27,8 @@ def l1_loss(a: torch.Tensor, b: torch.Tensor, spatial=None) -> torch.Tensor:
     return global_mean(torch.abs(a - b).float(), spatial)
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, spatial=None) -> torch.Tensor:
     """``nn.BCEWithLogitsLoss()`` (mean reduction) in its stable form,
     max(z, 0) - z t + log1p(exp(-|z|)), in f32."""
     z, t = logits.float(), targets.float()
-    return (torch.clamp(z, min=0.0) - z * t + torch.log1p(torch.exp(-torch.abs(z)))).mean()
+    return global_mean(torch.clamp(z, min=0.0) - z * t + torch.log1p(torch.exp(-torch.abs(z))), spatial)

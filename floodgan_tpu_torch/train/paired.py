@@ -47,14 +47,16 @@ batch's statistics, Pix2Pix's dropout draws the global batch's masks and
 keeps its rows, and the losses returned are the global batch's means.
 The ranks then hold the same parameters step after step.
 
-On a mesh with a spatial axis (``mesh.spatial``, PairedAttention only)
-each rank takes its rows of its stripe's images (``mesh.shard_images``):
-the generator and the D run shard-wise (``models.layers.set_spatial_mesh``),
-each loss is this rank's share of the global mean, and the gradient
-all-reduce sums the spatial ranks' partial gradients and averages over the
-data stripes.  Every rank issues the same exchanges in the same order: the
-D reads, the D-then-G backward and a remat recompute all run on every
-rank.  Pix2Pix raises ``NotImplementedError`` there (ROADMAP.md item 12b).
+On a mesh with a spatial axis (``mesh.spatial``) each rank takes its rows
+of its stripe's images (``mesh.shard_images``): the generator and the D
+run shard-wise (``models.layers.set_spatial_mesh``), each loss is this
+rank's share of the global mean, and the gradient all-reduce sums the
+spatial ranks' partial gradients and averages over the data stripes.
+Pix2Pix's batch norms reduce over the data stripes and the spatial ranks
+(over the stripes alone at the U-Net's replicated deep levels), and its
+dropout draws the rows of the global batch's masks.  Every rank issues
+the same exchanges in the same order: the D reads, the D-then-G backward
+and a remat recompute all run on every rank.
 """
 
 from __future__ import annotations
@@ -76,7 +78,6 @@ from floodgan_tpu_torch.models.registry import (
     generator_returns_mask,
 )
 from floodgan_tpu_torch.parallel.mesh import mean_grads
-from floodgan_tpu_torch.parallel.spatial import not_ported
 from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
@@ -127,8 +128,6 @@ class PairedTrainer:
         if model_is_cycle(model):
             raise ValueError(f"{model} trains with the cycle step, not the paired one")
         self.spatial = getattr(mesh, "spatial", None)  # a data-only mesh has none
-        if self.spatial is not None and model == "pix2pix":
-            raise not_ported("Pix2Pix (its 8-level U-Net reaches 1x1, narrower than a shard)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         self.model = model
@@ -170,13 +169,17 @@ class PairedTrainer:
     def dropout_generator(self, epoch: int, step: int, local_batch: int = 0):
         """The generator of step ``step`` of epoch ``epoch``'s dropout masks
         on the trainer's device (None without dropout); on a mesh, the
-        ``DropoutStream`` of this rank's ``local_batch`` rows."""
+        ``DropoutStream`` of this rank's ``local_batch`` images (and on a
+        spatial axis, of its rows of them)."""
         if not self.has_dropout:
             return None
         g = rng.epoch(epoch, step, self.device)
         if self.mesh is None:
             return g
-        return DropoutStream(g, local_batch * self.mesh.size, self.mesh.stripe(local_batch * self.mesh.size)[0])
+        stream = DropoutStream(g, local_batch * self.mesh.size, self.mesh.stripe(local_batch * self.mesh.size)[0])
+        if self.spatial is not None:
+            stream = stream._replace(row_index=self.spatial.index, row_count=self.spatial.size)
+        return stream
 
     def _gen_region(self, x: torch.Tensor, dropout_generator=None) -> torch.Tensor:
         return generator_image(self.generator, self.returns_mask, x.to(self.compute_dtype), dropout_generator)

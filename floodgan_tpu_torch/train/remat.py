@@ -33,7 +33,8 @@ once more.
 
 On the mesh's spatial axis a segment holds halo exchanges and the
 instance norms' all-reduces (``parallel.spatial``).  Its recompute issues
-them again, inside the backward.  Every rank's graph is the same, so the
+them again, inside the backward, under every policy: ``"convs"`` replays
+them with every other op but the convolutions.  Every rank's graph is the same, so the
 backward reaches each recompute at the same point, and the early stop, at
 the same saved tensor, on every rank: the exchanges pair up.  The
 recomputed statistics are the forward's, bit for bit (the same sums in the

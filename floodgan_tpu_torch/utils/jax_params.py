@@ -22,7 +22,10 @@ at the first step, so ``count == 0`` is "no state".
 The cycle trainer's state is the JAX ``CycleState``: both generators
 (``{ab, ba}``) and both Ds (``{post, pre}``), an Adam over each pair with
 one ``count``, and the two replay buffers (``{images, count}``, images
-NHWC).
+NHWC).  On a spatial axis a trainer's buffers hold its rows of each image
+(``CycleTrainer.buffer_rows``): its tree holds those rows
+(``cycle_buffer_rows`` says which, for ``ckpt.sharded``), and loading a
+whole tree keeps them.
 
 Key order does not matter to either reader; ``ckpt.save_checkpoint``
 writes every map's keys sorted, as JAX does.
@@ -242,22 +245,37 @@ def _buffer_to_jax(buffer) -> dict:
     return {"images": images, "count": np.asarray(buffer.count, np.int32)}
 
 
-def _load_buffer(buffer, raw: Mapping, key: str) -> None:
-    """Fill an ``ImageBuffer`` from a JAX buffer tree.  Images written in
-    the 2x2 phase layout (cap, H/2, W/2, 4C), as JAX writes them where its
-    phase-space cycle step runs (floodgan_tpu/api/model.py:52-82), are
-    depth-to-spaced back to (cap, H, W, C) first."""
+def _load_buffer(buffer, raw: Mapping, key: str, image_hw, rows=None) -> None:
+    """Fill an ``ImageBuffer`` from a JAX buffer tree of whole ``image_hw``
+    images, keeping rows [start, stop) of each where ``rows`` says so.
+    Images written in the 2x2 phase layout (cap, H/2, W/2, 4C), as JAX
+    writes them where its phase-space cycle step runs
+    (floodgan_tpu/api/model.py:52-82), are depth-to-spaced back to (cap, H,
+    W, C) first."""
     images = raw["images"]
     t = images.to_tensor() if isinstance(images, BF16Array) else torch.from_numpy(np.array(images))
-    cap, c, h, w = buffer.images.shape
+    cap, c = buffer.images.shape[:2]
+    h, w = image_hw
     n, a, b, d = t.shape
     if (n, a, b, d) == (cap, h // 2, w // 2, 4 * c) and (h, w) == (2 * a, 2 * b):
         t = t.reshape(n, a, b, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
     elif (n, a, b, d) != (cap, h, w, c):
         raise ValueError(f"checkpoint {key} images {tuple(t.shape)} fit neither the buffer's "
                          f"{(cap, h, w, c)} nor its 2x2 phase layout")
+    if rows is not None:
+        t = t[:, rows[0]:rows[1]]
     buffer.images.copy_(t.permute(0, 3, 1, 2))
     buffer.count = int(np.asarray(raw["count"]))
+
+
+def cycle_buffer_rows(trainer):
+    """{path of each buffer's images in the ``CycleState`` tree: (start,
+    stop, height)} where the trainer holds rows [start, stop) of each
+    buffered image of ``height`` rows (a spatial axis); None where it holds
+    them whole."""
+    if trainer.buffer_rows is None:
+        return None
+    return {f"{key}/images": (*trainer.buffer_rows, trainer.image_hw[0]) for key in _BUFFERS}
 
 
 def cycle_state_to_jax(trainer) -> dict:
@@ -289,4 +307,4 @@ def load_cycle_state(trainer, raw: Mapping) -> None:
             parts.append((module, jax_opt["mu"][k], jax_opt["nu"][k]))
         _load_adam(getattr(trainer, opt_key), parts, int(np.asarray(jax_opt["count"])))
     for key in _BUFFERS:
-        _load_buffer(getattr(trainer, key), raw[key], key)
+        _load_buffer(getattr(trainer, key), raw[key], key, trainer.image_hw, trainer.buffer_rows)

@@ -121,7 +121,7 @@ def test_not_ported_paths_name_their_roadmap_items(runs, tmp_path):
     kw = dict(data_path=runs["port_path"], metadata_dir=os.path.join(runs["port_path"], "metadata"),
               device="cpu", **KW)
     # Item 12's data and spatial axes are ported: N ranks are N processes, so one process alone
-    # refuses a mesh of 2; the networks of item 12b refuse the spatial axis.
+    # refuses a mesh of 2; item 12b put every network on the spatial axis.
     for axes in (dict(num_data_devices=2, batch_size=2), dict(num_spatial_devices=2)):
         with pytest.raises(RuntimeError, match="one process per rank"):
             Model(model="PairedAttention", **{**kw, **axes})
@@ -129,8 +129,8 @@ def test_not_ported_paths_name_their_roadmap_items(runs, tmp_path):
     from floodgan_tpu_torch.models.registry import build_generator
     from floodgan_tpu_torch.parallel.spatial import SpatialGroup
 
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        set_spatial_mesh(build_generator("cyclegan", 9), SpatialGroup(None, [0, 1], 0, "gloo"))
+    group = SpatialGroup(None, [0, 1], 0, "gloo")
+    assert set_spatial_mesh(build_generator("cyclegan", 9), group).spatial is group
     # Item 1 (remat) is ported: tests/test_torch_remat.py holds it.
     for extra, policy in ((dict(model="PairedAttention", remat=True), "boundaries"),
                           (dict(model="CycleGAN", remat=True), "convs")):

@@ -7,21 +7,32 @@ forms, each halo'd layer alone on gloo ranks, and the refusals.
   differs) and 1e-12 in float64, with the activation and the residual on
   and off.  The backward zeroes g where |yhat| <= 1e-5, where the two
   orders may take opposite sides of the activation's kink.
-- Every layer kind of the paired path's halo table (the k7 reflect stem and
-  head, conv2/conv3, the trunk's reflect-pad-1 convs, the ConvTs, the
-  PatchGAN's k4 s2 and k4 s1 convs, two k4 s1 convs in a row, and the
-  instance norm) on 2, 3 and 4 gloo ranks (tests/torch_spatial_workers.py)
-  against the same layer on the whole image, float64: forward and input
-  gradient within 1e-12, the ranks' output rows adding up to the whole
-  output's (the k4 s1 convs leave the last shard one row short each), and
-  each output contiguous (the IN kernels on the card refuse a view).
+- Every layer kind of the halo table (the k7 reflect stem and head,
+  conv2/conv3, the trunk's reflect-pad-1 convs, the ConvTs, the PatchGAN's
+  k4 s2 and k4 s1 convs, two k4 s1 convs in a row, the instance norm,
+  Pix2Pix's k4 s2 p1 ConvT, the U-Net's k2 ConvT, k3 p1 conv and
+  align-corners bilinear upsample, batch norm over data x spatial, and the
+  rows gathered through a replicated level whose batch norm reduces over
+  the data stripes alone, cut back to rows) on 2, 3 and 4 gloo ranks
+  (tests/torch_spatial_workers.py) against the same layer on the whole
+  image, float64: forward and input gradient within 1e-12, the ranks'
+  output rows adding up to the whole output's (the k4 s1 convs leave the
+  last shard one row short each), and each output contiguous (the IN
+  kernels on the card refuse a view).
+- Each network of the spatial axis (Pix2Pix, CycleGAN, the U-Net, the
+  batch-norm PatchGAN) under ``set_spatial_mesh`` on a 1 x 2 mesh, float64,
+  against the whole image: forward and input gradient within 1e-12, the
+  parameter gradients summed over the ranks within 1e-10 of each tensor's
+  norm; each trainer (CycleGAN, AttentionGAN, Pix2Pix) takes a step on it,
+  its two ranks bit for bit equal.
 - Refusals: a shard height a layer cannot take raises the ValueError that
-  names it; Pix2Pix, CycleGAN, AttentionGAN and the U-Net raise
-  NotImplementedError naming ROADMAP.md item 12b; two NCCL ranks on one
-  card are refused before any group starts (gloo ranks may share it).
+  names it, for every network; a module with no spatial layer refuses a
+  group; two NCCL ranks on one card are refused before any group starts
+  (gloo ranks may share it).
 """
 
 import os
+import re
 import threading
 
 import numpy as np
@@ -35,10 +46,18 @@ from floodgan_tpu_torch.ops import kernels
 from floodgan_tpu_torch.parallel import mesh as mesh_lib
 from floodgan_tpu_torch.parallel import spatial as sp
 
-from torch_spatial_workers import LAYER_KINDS, layers_on_ranks, run_ranks
+from torch_spatial_workers import (
+    LAYER_KINDS,
+    NETWORK_SHAPES,
+    TRAINER_MODELS,
+    layers_on_ranks,
+    networks_on_ranks,
+    run_ranks,
+)
 
 TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 TOL_LAYER = 1e-12
+TOL_F64_GRAD = 1e-10
 KINK = 1e-5
 CUTS = {2: (0, 9, 23), 3: (0, 5, 14, 23), 4: (0, 4, 10, 17, 23)}  # rows of a 23-row plane
 ACTS = {"none": (False, False, 0.0), "relu": (True, False, 0.0), "leaky+residual": (True, True, 0.2),
@@ -179,35 +198,64 @@ def test_the_shard_checks_take_the_sizes_the_jax_tests_run():
         sp.check_patchgan_rows(rows)
 
 
-@pytest.mark.parametrize("net", ["pix2pix", "cyclegan", "unet", "batch-norm PatchGAN"])
-def test_networks_of_item_12b_refuse_a_spatial_group(net):
-    module = {"pix2pix": lambda: build_generator("pix2pix", 9), "cyclegan": lambda: build_generator("cyclegan", 9),
-              "unet": lambda: UNet(), "batch-norm PatchGAN": lambda: build_discriminator("pix2pix", 12)}[net]()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        set_spatial_mesh(module, _group())
-    set_spatial_mesh(module, None)  # no group: nothing to refuse
+# ------------------------------------------------------------ the networks of the spatial axis
+
+@pytest.fixture(scope="module")
+def network_runs(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("spatial_networks"))
+    run_ranks(networks_on_ranks, 2, args=(out,))
+    return [torch.load(os.path.join(out, f"networks_rank{r}.pt")) for r in range(2)]
 
 
-class _SpatialMesh:
-    """A mesh with a spatial group; the trainers must refuse it before any
-    collective."""
+@pytest.mark.parametrize("net", list(NETWORK_SHAPES))
+def test_each_network_on_its_shards_equals_the_whole_image(network_runs, net):
+    """Forward, input gradient and the parameter gradients summed over the
+    ranks, float64, 1 x 2 mesh; a conv bias that feeds a norm has a true
+    gradient of 0, held to 1e-12 absolute."""
+    for rank in network_runs:
+        res = rank["networks"][net]
+        assert sum(res["rows"]) == res["whole_rows"], res["rows"]
+        assert res["err"] <= TOL_LAYER and res["derr"] <= TOL_LAYER, (res["err"], res["derr"])
+        for name, (err, norm) in res["grads"].items():
+            assert err <= max(TOL_F64_GRAD * norm, TOL_LAYER), (name, err, norm)
 
-    size = 1
-    rank = data_index = spatial_index = 0
-    device = torch.device("cpu")
-    spatial = _group()
+
+@pytest.mark.parametrize("model", list(TRAINER_MODELS))
+def test_each_trainer_takes_a_step_on_a_spatial_mesh(network_runs, model):
+    a, b = (rank["trainers"][model] for rank in network_runs)
+    assert a == b  # losses and a digest of every parameter's bytes, bit for bit
+    assert all(np.isfinite(v) for v in a["losses"].values())
 
 
-@pytest.mark.parametrize("model", ["cyclegan", "attentiongan", "pix2pix"])
-def test_trainers_of_item_12b_refuse_the_spatial_axis(model):
-    from floodgan_tpu_torch.train.cycle import CycleTrainer
-    from floodgan_tpu_torch.train.paired import PairedTrainer
+# (network, spatial size, a shard it cannot take, the layer the error names);
+# Pix2Pix takes any height divisible by 256 whose shard halves once.
+TOO_SHORT = {
+    "pix2pix": (lambda: build_generator("pix2pix", 9), 256, (1, 9, 1, 256), "down0_conv"),
+    "cyclegan": (lambda: build_generator("cyclegan", 9), 2, (1, 9, 6, 16), "down2"),
+    "unet": (lambda: UNet(), 2, (1, 3, 12, 16), "down3 (max-pool 2)"),
+    "batch-norm PatchGAN": (lambda: build_discriminator("pix2pix", 12), 2, (1, 12, 16, 64), "conv3/conv4"),
+}
 
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        if model == "pix2pix":
-            PairedTrainer(model, 9, device="cpu", mesh=_SpatialMesh())
-        else:
-            CycleTrainer(model, 9, (64, 64), device="cpu", mesh=_SpatialMesh())
+
+@pytest.mark.parametrize("net", list(TOO_SHORT))
+def test_a_network_shard_too_short_for_a_layer_raises_naming_it(net):
+    build, size, shape, layer = TOO_SHORT[net]
+    module = set_spatial_mesh(build(), _group(size))
+    with pytest.raises(ValueError, match=re.escape(layer)):
+        module(torch.zeros(shape))
+
+
+def test_the_pix2pix_gather_level_is_a_rule_of_height_and_spatial_size():
+    # Input shard rows H/S: the first down level that cannot halve them.
+    assert {(h, s): sp.pix2pix_gather_level(h // s) for h, s in ((256, 2), (256, 4), (512, 2), (512, 4), (768, 3))} \
+        == {(256, 2): 7, (256, 4): 6, (512, 2): 8, (512, 4): 7, (768, 3): 8}
+    assert sp.pix2pix_gather_level(2) == 1 and sp.pix2pix_gather_level(6) == 1 and sp.pix2pix_gather_level(1) == 0
+
+
+def test_a_module_without_a_spatial_layer_refuses_a_group():
+    with pytest.raises(ValueError, match="does not run on the rows"):
+        set_spatial_mesh(torch.nn.Conv2d(3, 3, 3), _group())
+    set_spatial_mesh(torch.nn.Conv2d(3, 3, 3), None)  # no group: nothing to refuse
 
 
 def test_two_nccl_ranks_on_one_card_are_refused_before_the_group(monkeypatch):
