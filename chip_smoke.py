@@ -11,8 +11,9 @@ evaluation with the segmentation U-Net, the other three families (Pix2Pix
 and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
 data-parallel path, the spatial axis (image height over 2 ranks, every
 family and the U-Net), the comparison CLI, the offline ETL with a training
-epoch on its dataset and the .pth.tar export, and serving under load (the
-serve bench and HTTP).
+epoch on its dataset and the .pth.tar export, serving under load (the
+serve bench and HTTP), the headline bench in its three modes, and the
+multichip dry run on two ranks of the card.
 It fails unless every phase passes:
 
 1. device   - a CUDA card is present; prints its name and power limit.
@@ -221,6 +222,28 @@ It fails unless every phase passes:
               (each right) and 503s with "retry", nothing else.  Prints the
               bench's lines, the HTTP round trip's p50/p99 and each model's
               batch occupancy.
+19. bench   - python -m floodgan_tpu_torch.tools.bench through its main(),
+              each run with the launch counts set to 0 before and read
+              after: --mode train at its defaults (the headline:
+              PairedAttention, 512^2, batch 8, bf16, 5 warm-up steps, the
+              first under FlopCounterMode, then 50 timed; K1 34, K2 34, K3 1,
+              K4 1 a step, exactly), again with --steps 10 (the same FLOPs a
+              sample), then --steps 10 for pix2pix, cyclegan, attentiongan
+              (FAMILY_STEP_LAUNCHES a step) and unet (none); --mode eval
+              --steps 10 (K1 25, K3 1 a batch); --mode pipeline at its
+              defaults (12 images of 1024^2 and their flipped copies written
+              into a temporary directory, batch 8, a warm epoch and 4
+              measured ones through BatchLoader, then 23 steps on a batch on
+              the card; a train step's launches each).  Every line has a
+              finite value above 0, the card's nvidia-smi name and power
+              limit, and where printed an MFU in (0, 1]; the train lines on
+              the card print tflops_per_sec, mfu, peak_tflops; the pipeline's
+              measured epochs come from the post-transform cache (hit rate
+              1.0).  Prints each line and its wall time.
+20. dryrun  - tools/dryrun.py: dryrun_multichip(2, "cuda") on NCCL is
+              refused on one card before any process starts; then its five
+              phases (paired, cycle, seg, eval, spatial) on 2 gloo ranks on
+              card 0 pass, each phase's wall time printed.
 
 The line before the verdict is one JSON "kernels" line.  The last line is
 {"ok": true, "device": {...}}.  Without a card, or without the package
@@ -427,6 +450,16 @@ BURST_PENDING = 4
 # An answer through HTTP against engine.predict of the same image (f32, TF32
 # off): the batch it shared differs, and only per-sample work touches it.
 TOL_HTTP = 1e-5
+# [bench]: python -m floodgan_tpu_torch.tools.bench through its main(), at its
+# defaults (--warmup 5 --steps 50; the first warm-up step counts the FLOPs)
+# and, for the other models and a second headline run, BENCH_SHORT_STEPS
+# timed steps.  Launches a run: a step's (or an eval batch's generator
+# forward's) times the steps; the U-Net launches nothing.
+BENCH_WARMUP, BENCH_STEPS, BENCH_SHORT_STEPS = 5, 50, 10
+BENCH_MODELS = ("pix2pix", "cyclegan", "attentiongan", "unet")
+BENCH_PIPELINE_SAMPLES = 2 * 12  # --pipeline_images 12, each original and flipped
+# [dryrun]: the five phases of tools/dryrun.py on DRYRUN_RANKS gloo ranks on card 0.
+DRYRUN_RANKS = 2
 # The metric CSV's columns in the JAX package's order
 # (floodgan_tpu/api/model.py:614-619).
 JAX_METRIC_COLUMNS = (
@@ -3377,6 +3410,77 @@ def phase_load(smi, ckpt: str) -> dict:
     return launches.total
 
 
+def _bench_line(line: dict, what: str, smi: str) -> None:
+    """The checks every bench line passes: a finite value above 0, an MFU in
+    (0, 1] where one is printed, the card named."""
+    check(np.isfinite(line["value"]) and line["value"] > 0, f"bench {what}: value {line['value']}")
+    check("mfu" not in line or 0 < line["mfu"] <= 1, f"bench {what}: mfu {line.get('mfu')}")
+    check(line["device"] == smi, f"bench {what}: device {line['device']!r}, nvidia-smi says {smi!r}")
+
+
+def phase_bench(smi) -> dict:
+    """The headline bench through its main() in each mode (module docstring,
+    phase 19).  Returns the launch counts of its runs."""
+    from floodgan_tpu_torch.tools import bench
+
+    launches = _Launches()
+    lines, walls = {}, {}
+
+    def run(what: str, argv: list, per_step: dict, steps: int) -> dict:
+        launches.zero()
+        t0 = time.perf_counter()
+        line = bench.main(argv)
+        walls[what] = time.perf_counter() - t0
+        launches.read(f"bench {what}", {k: v * steps for k, v in per_step.items()})
+        _bench_line(line, what, smi)
+        lines[what] = line
+        return line
+
+    short = ["--steps", str(BENCH_SHORT_STEPS)]
+    head = run("train", [], TRAIN_STEP_LAUNCHES, BENCH_WARMUP + BENCH_STEPS)
+    need = ("value", "tflops_per_sec", "mfu", "flops_per_sample_tf", "peak_tflops", "device")
+    check(all(k in head for k in need), f"the headline line lacks one of {need}: {head}")
+    again = run("train again", short, TRAIN_STEP_LAUNCHES, BENCH_WARMUP + BENCH_SHORT_STEPS)
+    check(again["flops_per_sample_tf"] == head["flops_per_sample_tf"],
+          f"two PairedAttention runs counted {head['flops_per_sample_tf']} and {again['flops_per_sample_tf']} "
+          "TFLOP a sample")
+    for model in BENCH_MODELS:
+        first = run(model, ["--model", model] + short, FAMILY_STEP_LAUNCHES.get(model, NO_LAUNCHES),
+                    BENCH_WARMUP + BENCH_SHORT_STEPS)
+        check("mfu" in first, f"bench {model}: no mfu on {smi}: {first}")
+    run("eval", ["--mode", "eval"] + short, SERVE_LAUNCHES, BENCH_WARMUP + BENCH_SHORT_STEPS)
+    # The warm epoch, the measured epochs, then 3 + 20 steps on a batch on the card.
+    epoch = BENCH_PIPELINE_SAMPLES // BATCH
+    pipe = run("pipeline", ["--mode", "pipeline"], TRAIN_STEP_LAUNCHES, epoch * 5 + 3 + 20)
+    check(pipe["post_cache_hit_rate"] == 1.0 and pipe["post_transform_cache"] is True,
+          f"the measured epochs were not served from the post-transform cache: {pipe}")
+    for what, line in lines.items():
+        keys = {k: line[k] for k in line if k not in ("metric", "unit", "baseline", "device", "includes")}
+        say("bench", f"{what}: {line['metric']}: {json.dumps(keys)} ({walls[what]:.1f} s wall)")
+    say("bench", f"{smi}; launches {launches.total}")
+    return launches.total
+
+
+def phase_dryrun(smi) -> None:
+    """tools/dryrun.py's five phases on DRYRUN_RANKS gloo ranks on card 0,
+    after NCCL on as many ranks is refused (module docstring, phase 20)."""
+    from floodgan_tpu_torch.tools import dryrun
+
+    try:
+        dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SmokeFailure(f"dryrun_multichip({DRYRUN_RANKS}, 'cuda') ran on NCCL with one card")
+    check(torch.cuda.device_count() == 1 and f"requested {DRYRUN_RANKS} devices" in refusal,
+          f"NCCL refused with {refusal!r}")
+    say("dryrun", f"NCCL on {DRYRUN_RANKS} ranks with {torch.cuda.device_count()} card refused before any "
+                  f"process started: {refusal}")
+    seconds = dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda", backend="gloo")
+    say("dryrun", f"{DRYRUN_RANKS} gloo ranks on card 0, every phase passed: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()) + f" wall ({smi})")
+
+
 def phase_train_card_vs_cpu() -> None:
     from floodgan_tpu_torch.train.paired import PairedTrainer
 
@@ -3421,12 +3525,14 @@ def main() -> int:
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
         etl_counts, etl_ckpt = phase_etl(smi, root)
         load_counts = phase_load(smi, etl_ckpt)
+        bench_counts = phase_bench(smi)
+        phase_dryrun(smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
             "eval": eval_counts, "families": families_counts, "remat": remat_counts, "dp": dp_counts,
             "spatial": spatial_counts,
-            "compare": compare_counts, "etl": etl_counts, "load": load_counts}
+            "compare": compare_counts, "etl": etl_counts, "load": load_counts, "bench": bench_counts}
     for k, row in rows.items():
         row["launches"] = sum(c[k] for c in runs.values())
     check(all(row["launches"] > 0 for row in rows.values()), f"a kernel of the main paths never ran: {runs}")

@@ -7,6 +7,7 @@ unless the caller asks for the CPU, and raise where there is no card.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import threading
 
 import torch
@@ -43,3 +44,13 @@ def resolve_device(device, who: str) -> torch.device:
             "device='cpu' explicitly to run the plain PyTorch versions."
         )
     return dev
+
+
+def card_label(index: int = 0) -> str:
+    """Card ``index``'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, the
+    line written beside every number measured on it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", f"--id={index}"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()

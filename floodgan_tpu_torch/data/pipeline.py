@@ -3,11 +3,14 @@
 The port of floodgan_tpu/data/pipeline.py.  Worker threads decode TIFFs
 (the native C++ decoder, else the Python codec), copy the raw batch to the
 loader's device and run the transform there (flip, channel slice, bicubic
-antialiased resize, quadrant crop, [-1, 1]; ``data/transforms.py``), two
-batches ahead of the consumer.  Batches are
+antialiased resize, quadrant crop, [-1, 1]; ``data/transforms.py``),
+``prefetch`` batches ahead of the consumer on a pool of ``num_workers``
+threads.  Batches are
 ``{"input": (B,h,w,C), "output": (B,h,w,3), "names": [...]}``, f32 NHWC
 tensors on the loader's device.  Mask batches (``MaskDataset``) are
-``(B,H,W,3)`` images and ``(B,H,W,1)`` masks, flipped and nothing else.
+``(B,H,W,3)`` images and ``(B,H,W,1)`` masks, flipped and nothing else, as
+are flood batches with ``transform=False`` (the raw 9-channel stack and
+3-channel output at the size on disk).
 
 On the card each worker thread has its own CUDA stream.  The raw batch is
 decoded into pinned host memory, copied with ``non_blocking=True`` on
@@ -18,11 +21,13 @@ uses the tensors, so their memory is not reused while a step still reads
 them.
 
 The epoch order is ``np.random.default_rng(epoch).permutation(n)``, as in
-the JAX loader (the reference seeds torch's RNG with the epoch number).
+the JAX loader (the reference seeds torch's RNG with the epoch number), or
+``np.arange(n)`` with ``shuffle=False``; ``drop_remainder=True`` drops a
+short last batch.
 
 Environment, with the JAX package's names and defaults:
 - ``FLOODGAN_DECODE_CACHE_BYTES`` (4 GiB): the LRU cache of files the
-  Python codec decoded;
+  Python codec decoded, unless a dataset is given ``cache_bytes``;
 - ``FLOODGAN_POST_CACHE`` (on) and ``FLOODGAN_POST_CACHE_BYTES`` (4 GiB):
   the post-transform cache.  Epoch 1 fetches each transformed sample to
   host memory once; later epochs copy the cached samples to the card and
@@ -98,6 +103,11 @@ def _env_bytes(name: str) -> int:
     return int(os.environ.get(name, 4 << 30))
 
 
+def _decode_cache(cache_bytes: Optional[int]) -> _LruBytesCache:
+    """The decode cache of ``cache_bytes`` (None: the environment's bound)."""
+    return _LruBytesCache(_env_bytes("FLOODGAN_DECODE_CACHE_BYTES") if cache_bytes is None else cache_bytes)
+
+
 def post_transform_cache() -> bool:
     """``FLOODGAN_POST_CACHE``: on unless set to a false value."""
     v = os.environ.get("FLOODGAN_POST_CACHE")
@@ -122,6 +132,7 @@ class FloodDataset:
         resize: Optional[int],
         crop: Optional[int],
         metadata_dir: Optional[str] = None,
+        cache_bytes: Optional[int] = None,
     ):
         self.samples: List[FloodSample] = determine_flood_dataset(
             dataset_subset, dataset_dem, crop, metadata_dir
@@ -130,7 +141,7 @@ class FloodDataset:
         self.topography = topography
         self.resize = resize
         self.crop = crop
-        self._cache = _LruBytesCache(_env_bytes("FLOODGAN_DECODE_CACHE_BYTES"))
+        self._cache = _decode_cache(cache_bytes)
         # Keyed by sample index: the index pins (file, flip, crop index), and
         # the transform's settings are fixed per dataset.
         self._post_cache = _LruBytesCache(_env_bytes("FLOODGAN_POST_CACHE_BYTES"))
@@ -179,10 +190,10 @@ class MaskDataset:
     models/data.py:179-201): a 3-channel image under masks_input/ and its
     1-channel mask under masks_output/, the same file name."""
 
-    def __init__(self, samples: Sequence[MaskSample], path: str):
+    def __init__(self, samples: Sequence[MaskSample], path: str, cache_bytes: Optional[int] = None):
         self.samples = list(samples)
         self.path = path
-        self._cache = _LruBytesCache(_env_bytes("FLOODGAN_DECODE_CACHE_BYTES"))
+        self._cache = _decode_cache(cache_bytes)
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -212,24 +223,33 @@ Batch = Dict[str, object]
 
 
 class BatchLoader:
-    """Shuffled, thread-prefetched batch iterator on ``device`` (None: the
-    card, which raises where there is none).
+    """Thread-prefetched batch iterator on ``device`` (None: the card, which
+    raises where there is none), with the JAX loader's options:
+    ``shuffle`` (the epoch's permutation, else index order), ``transform``
+    (off: flood batches are the raw decoded stacks, flipped and nothing
+    else), ``drop_remainder`` (no short last batch), ``num_workers`` (the
+    worker threads) and ``prefetch`` (the batches in flight).
 
     ``post_cache_hits`` / ``post_cache_total`` count the batches of the
-    current iteration that the post-transform cache served.
-    ``stage_seconds`` sums, over the current iteration's batches, the
-    worker-side seconds of each stage: ``alloc`` (the raw batch's host
+    current iteration that the post-transform cache served, and all of its
+    batches.  ``stage_seconds`` sums, over the current iteration's batches,
+    the worker-side seconds of each stage: ``alloc`` (the raw batch's host
     buffers, pinned on the card's path), ``decode`` (TIFF to host memory),
     ``device`` (H2D and transform, to the event; on the card it includes
     waiting for the card) and ``post_cache`` (the fetch that fills the
     cache, or the stack of cached samples).
     """
 
-    PREFETCH = 2  # batches in flight, each on its own worker thread
-
-    def __init__(self, dataset: Union[FloodDataset, MaskDataset], batch_size: int = 1, device=None):
+    def __init__(self, dataset: Union[FloodDataset, MaskDataset], batch_size: int = 1, shuffle: bool = True,
+                 transform: bool = True, drop_remainder: bool = False, num_workers: int = 8, prefetch: int = 2,
+                 device=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.transform = transform
+        self.drop_remainder = drop_remainder
+        self.num_workers = num_workers
+        self.prefetch = prefetch
         self.device = resolve_device(device, "BatchLoader")
         self.post_cache_hits = 0
         self.post_cache_total = 0
@@ -239,10 +259,14 @@ class BatchLoader:
         self._stripe = len(dataset)
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def epoch_iter(self, epoch: int = 0) -> Iterator[Batch]:
-        return self.iter_indices(np.random.default_rng(epoch).permutation(len(self.dataset)))
+        n = len(self.dataset)
+        return self.iter_indices(np.random.default_rng(epoch).permutation(n) if self.shuffle else np.arange(n))
 
     def __iter__(self) -> Iterator[Batch]:
         return self.epoch_iter(0)
@@ -255,12 +279,14 @@ class BatchLoader:
             self.stage_seconds = dict.fromkeys(self.stage_seconds, 0.0)
             self._stripe = len(order)
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        if self.drop_remainder:
+            batches = [b for b in batches if len(b) == self.batch_size]
 
-        with cf.ThreadPoolExecutor(max_workers=self.PREFETCH) as pool:
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: "collections.deque" = collections.deque()
             bi = 0
             try:
-                while bi < len(batches) and len(pending) < self.PREFETCH:
+                while bi < len(batches) and len(pending) < self.prefetch:
                     pending.append(pool.submit(self._produce, batches[bi]))
                     bi += 1
                 while pending:
@@ -289,15 +315,18 @@ class BatchLoader:
             self.stage_seconds[stage] += seconds
 
     def _produce(self, idx_batch) -> Batch:
-        if isinstance(self.dataset, MaskDataset):
-            return self._assemble_masks(idx_batch)
         cached = self._assemble_from_post_cache(idx_batch)
         with self._lock:
             self.post_cache_total += 1
             self.post_cache_hits += cached is not None
         if cached is not None:
             return cached
-        return self._assemble(idx_batch, *self._load_raw_batch(idx_batch))
+        if isinstance(self.dataset, MaskDataset):
+            return self._assemble_flipped(idx_batch, *self._load_raw_masks(idx_batch))
+        inputs, outputs, flips, crops = self._load_raw_batch(idx_batch)
+        if not self.transform:
+            return self._assemble_flipped(idx_batch, inputs, outputs, flips)
+        return self._assemble(idx_batch, inputs, outputs, flips, crops)
 
     def _host_buffer(self, shape, dtype=torch.float32) -> torch.Tensor:
         """A host tensor for a batch: pinned when it goes to the card."""
@@ -347,7 +376,8 @@ class BatchLoader:
         return ev
 
     def _post_cache_active(self) -> bool:
-        return not self.dataset._post_cache_disabled and post_transform_cache()
+        return (self.transform and isinstance(self.dataset, FloodDataset)
+                and not self.dataset._post_cache_disabled and post_transform_cache())
 
     def _assemble_from_post_cache(self, idx_batch) -> Optional[Batch]:
         """The steady state: every sample's transformed pair is in host
@@ -373,12 +403,16 @@ class BatchLoader:
         names = [self.dataset.name(int(i)) for i in idx_batch]
         return {"input": inp, "output": out, "names": names, "_ready": ready}
 
+    def _wire(self, inputs: torch.Tensor, outputs: torch.Tensor) -> tuple:
+        """The raw batch as it crosses to the card: bf16 (half the bytes)
+        under ``FLOODGAN_WIRE_DTYPE=bfloat16``, upcast to f32 there."""
+        if os.environ.get("FLOODGAN_WIRE_DTYPE") != "bfloat16":
+            return inputs, outputs
+        return tuple(self._host_buffer(t.shape, torch.bfloat16).copy_(t) for t in (inputs, outputs))
+
     def _assemble(self, idx_batch, inputs, outputs, flips, crops) -> Batch:
         ds = self.dataset
-        if os.environ.get("FLOODGAN_WIRE_DTYPE") == "bfloat16":
-            # Half the bytes over the link; the transform upcasts to f32.
-            wire = [self._host_buffer(t.shape, torch.bfloat16) for t in (inputs, outputs)]
-            inputs, outputs = (w.copy_(t) for w, t in zip(wire, (inputs, outputs)))
+        inputs, outputs = self._wire(inputs, outputs)
         names = [ds.name(int(i)) for i in idx_batch]
         t0 = time.perf_counter()
         stream = self._stream()
@@ -395,26 +429,32 @@ class BatchLoader:
                 self._fill_post_cache(idx_batch, inp, out)
         return {"input": inp, "output": out, "names": names, "_ready": ready}
 
-    def _assemble_masks(self, idx_batch) -> Batch:
-        """A batch of mask pairs: flip only, no resize, crop or [-1, 1]
-        (reference models/data.py:191-196).  Under the bf16 wire the pairs
-        cross in bf16 and are upcast to f32 on arrival."""
+    def _load_raw_masks(self, idx_batch):
+        """A batch of decoded mask pairs in host tensors: (images, masks,
+        flips)."""
         ds = self.dataset
         t0 = time.perf_counter()
         raws = [ds.read_raw(int(i)) for i in idx_batch]
         self._add("decode", time.perf_counter() - t0)
         t0 = time.perf_counter()
-        wire = torch.bfloat16 if os.environ.get("FLOODGAN_WIRE_DTYPE") == "bfloat16" else torch.float32
-        host = [self._host_buffer((len(raws),) + raws[0][k].shape, wire) for k in (0, 1)]
+        host = [self._host_buffer((len(raws),) + raws[0][k].shape) for k in (0, 1)]
         for k, buf in enumerate(host):
-            buf.copy_(torch.from_numpy(np.stack([r[k] for r in raws])))
+            np.stack([r[k] for r in raws], out=buf.numpy())
         self._add("alloc", time.perf_counter() - t0)
-        names = [ds.name(int(i)) for i in idx_batch]
+        return host[0], host[1], [r[2] for r in raws]
+
+    def _assemble_flipped(self, idx_batch, inputs, outputs, flips) -> Batch:
+        """A batch flipped and nothing else: mask pairs (no resize, crop or
+        [-1, 1]; reference models/data.py:191-196), and flood pairs with
+        ``transform=False``.  Under the bf16 wire the pairs cross in bf16
+        and are upcast to f32 on arrival."""
+        inputs, outputs = self._wire(inputs, outputs)
+        names = [self.dataset.name(int(i)) for i in idx_batch]
         t0 = time.perf_counter()
         stream = self._stream()
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            flip = torch.tensor([r[2] for r in raws], device=self.device)[:, None, None, None]
-            inp, out = (torch.where(flip, t.flip(2), t).float() for t in self._to_device(*host))
+            flip = torch.tensor(list(flips), device=self.device)[:, None, None, None]
+            inp, out = (torch.where(flip, t.flip(2), t).float() for t in self._to_device(inputs, outputs))
             ready = self._ready(stream, t0)
         return {"input": inp, "output": out, "names": names, "_ready": ready}
 

@@ -2,7 +2,8 @@
 floodgan_tpu/parallel/multihost.py.
 
 Every rank computes the same seeded epoch plan (the shuffle is keyed by
-the epoch number alone, as in ``data.pipeline.BatchLoader``), so no
+the epoch number alone, as in ``data.pipeline.BatchLoader``; index order
+with ``shuffle=False``), so no
 coordination traffic is needed; each rank decodes only its contiguous
 stripe of every global batch and yields that stripe on its own card.
 With one rank this is ``BatchLoader`` with the remainder batch dropped.
@@ -42,15 +43,19 @@ class MultiHostBatchLoader:
     drop_remainder = True
 
     def __init__(self, dataset, batch_size: int, process_index: int = 0, process_count: int = 1, device=None,
-                 spatial_index: int = 0, spatial_count: int = 1):
+                 spatial_index: int = 0, spatial_count: int = 1, shuffle: bool = True, num_workers: int = 8,
+                 prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.process_index = process_index
         self.process_count = process_count
         self.spatial_index = spatial_index
         self.spatial_count = spatial_count
         self.stripe = process_stripe(batch_size, process_index, process_count)
-        self._local = BatchLoader(dataset, batch_size=batch_size // process_count, device=device)
+        # The local loader takes the stripe in the order given, short batches kept.
+        self._local = BatchLoader(dataset, batch_size=batch_size // process_count, shuffle=False,
+                                  drop_remainder=False, num_workers=num_workers, prefetch=prefetch, device=device)
         self.device = self._local.device
         self._auto_epoch = 0
 
@@ -65,7 +70,7 @@ class MultiHostBatchLoader:
     def local_indices(self, epoch: int = 0) -> np.ndarray:
         """This rank's samples of the epoch, global batch after global batch."""
         n = len(self.dataset)
-        order = np.random.default_rng(epoch).permutation(n)
+        order = np.random.default_rng(epoch).permutation(n) if self.shuffle else np.arange(n)
         lo, hi = self.stripe
         usable = (n // self.batch_size) * self.batch_size
         return np.concatenate([order[s + lo:s + hi] for s in range(0, usable, self.batch_size)] or

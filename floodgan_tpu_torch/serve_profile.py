@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import subprocess
 import sys
 import time
 
@@ -28,6 +27,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
+from floodgan_tpu_torch.core.device import card_label
 from floodgan_tpu_torch.models.layers import init_weights
 from floodgan_tpu_torch.models.registry import build_generator
 from floodgan_tpu_torch.serve import InferenceEngine
@@ -120,10 +120,7 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=5)
     args = p.parse_args(argv)
     out = profile_engine(args.batch, args.size, args.iters)
-    out["device"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    out["device"] = card_label()
     print(json.dumps(out))
     return 0
 

@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import subprocess
 import sys
 import time
 
@@ -32,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
 from floodgan_tpu_torch.core.config import MODEL_NAMES, model_is_cycle
+from floodgan_tpu_torch.core.device import card_label
 from floodgan_tpu_torch.serve_profile import CATEGORIES, busy_us, category
 from floodgan_tpu_torch.train.cycle import CycleTrainer
 from floodgan_tpu_torch.train.paired import PairedTrainer
@@ -110,10 +110,7 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = p.parse_args(argv)
     out = profile_trainer(args.batch, args.size, args.iters, args.dtype, model=args.model)
-    out["device"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    out["device"] = card_label()
     print(json.dumps(out))
     return 0
 

@@ -38,6 +38,7 @@ def test_scan_covers_the_port():
         "parallel/mesh.py", "parallel/multihost.py", "parallel/spatial.py", "ckpt/sharded.py", "pre_processing/__init__.py",
         "pre_processing/metadata.py", "pre_processing/stack.py", "pre_processing/scripts.py",
         "pre_processing/explore.py", "utils/torch_export.py", "tools/serve_bench.py",
+        "tools/bench.py", "tools/dryrun.py",
     )} | {"chip_smoke.py"} <= names
 
 
