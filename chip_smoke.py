@@ -9,7 +9,8 @@ content-head microbench (a ConvT 128->64 to 512^2, reflect pad, the 7x7
 64->27 head conv) at batch 8 in bf16, the training and predict CLIs, GAN
 evaluation with the segmentation U-Net, the other three families (Pix2Pix
 and the cycle step of CycleGAN and AttentionGAN), rematerialisation and the
-data-parallel path, the spatial axis (image height over 2 ranks, every
+data-parallel path, two training steps under PyTorch's deterministic
+algorithms, the spatial axis (image height over 2 ranks, every
 family and the U-Net), the comparison CLI, the offline ETL with a training
 epoch on its dataset and the .pth.tar export, serving under load (the
 serve bench and HTTP), the headline bench in its three modes, and the
@@ -20,14 +21,26 @@ It fails unless every phase passes:
 2. build    - compiles csrc/*.cu with nvcc for sm_90a (ops/_build.py).
 3. kernels  - each hand-written kernel against its plain PyTorch version on
               the card, at the shapes the main paths give it (K1 instance
-              norm and K3 compose, f32 and bf16; K2 instance-norm backward
-              at the 4 generator and 3 PatchGAN sites, f32 and bf16; K4
+              norm and K3 compose, f32 and bf16, K1 also with its per-plane
+              (mean, inv) out: y bit for bit the form without, the
+              statistics within TOL_F32_IN of the plain ones; K2
+              instance-norm backward at the 4 generator and 3 PatchGAN
+              sites, f32 and bf16, from K1's saved statistics (the
+              training path's form): within the limits of the plain
+              version and bit for bit the form that derives them again; K4
               compose backward, f32 and bf16, with and without the mask
               gradient; K5 row copy at the head's padded input, bf16 and
-              f32, bit for bit), with its median time (CUDA events), its
-              bound, the plain version's time and, where one PyTorch call
-              computes the same function, that call's time; then odd edge
-              shapes and misaligned pointers.
+              f32, bit for bit; K6 reflect-pad backward at each reflect-pad
+              site of the paired and AttentionGAN steps, the spatial
+              axis's W-only pads (trunk, head and stem) and [remat]'s
+              1024^2 AttentionGAN, bf16 and f32, bit for bit its plain
+              version and identical over TIMED_RUNS repeated launches),
+              with its median time (CUDA events), its bound, the plain
+              version's time and, where one PyTorch call computes the same
+              function, that call's time (K6: ATen's
+              reflection_pad2d_backward); then odd edge shapes and
+              misaligned pointers (K6 also one-sided and W-only pads, pads
+              one less than the dimension, 70000 planes).
 4. engine   - InferenceEngine at batch 8 and batch 1 from a seeded init: one
               predict launches the IN kernel 25 times and compose once, and
               no backward kernel; the output is finite, in [0, 1]; latency
@@ -38,7 +51,8 @@ It fails unless every phase passes:
               CPU engine (plain versions), TF32 off.
 7. train    - PairedTrainer at 512^2, batch 8, bf16, from a seeded init: one
               train_step, with the launch counts set to 0 before and read
-              after, launches K1 34 times, K2 34 times, K3 and K4 once: the
+              after, launches K1 34 times, K2 34 times, K3 and K4 once, K6
+              19 times (18 trunk pads and the content head's): the
               training path.  Five steps give finite losses and change both
               parameter sets; then the median step time over 10 steps,
               samples/s and peak memory.
@@ -47,7 +61,8 @@ It fails unless every phase passes:
               check (every variant within TOL_HEAD_ULPS of raw, and K5 then
               raw equal to raw bit for bit), the fwd+bwd race of every
               variant that has a backward, and the forward race of all 11;
-              K5 launches once per raw_pallasfence forward.
+              K5 launches once per raw_pallasfence forward, K6 once per
+              fwd+bwd call.
 9. cli      - the paired-training CLI end to end on 1024^2 tiles written
               into a temporary directory (12 train images, each original and
               flipped, 8 validation, 2 test; 9-channel inputs, 3-channel
@@ -96,8 +111,8 @@ It fails unless every phase passes:
               batch 8, bf16, topography all.  One step each, the counts set
               to 0 before and read after, launches exactly
               FAMILY_STEP_LAUNCHES (Pix2Pix none; AttentionGAN K1 112, K2 112,
-              K3 4, K4 4, and 162/162/6/6 with the identity loss; CycleGAN K1
-              104, K2 104); five steps give finite losses and move every
+              K3 4, K4 4, K6 78, and 162/162/6/6/116 with the identity loss;
+              CycleGAN K1 104, K2 104, K6 78); five steps give finite losses and move every
               network's weights, and a cycle buffer holds min(50, 8 x steps)
               images; then the median step of 10, samples/s and peak memory.
               The card against the CPU at 64^2 (cycle) and 256^2 (Pix2Pix,
@@ -115,7 +130,7 @@ It fails unless every phase passes:
               (CycleTrainer, [families]' seed and batch: 512^2, batch 8,
               bf16, topography all) under convs, boundaries and full: one
               step launches exactly REMAT_CYCLE_LAUNCHES (K1 212, K2 112, K3
-              8, K4 4: each of the 4 generator reads runs its forward
+              8, K4 4, K6 78: each of the 4 generator reads runs its forward
               kernels again), step-1 losses equal the plain trainer's bit
               for bit, step-2 within TOL_REMAT_STEP2, five steps finite and
               moving every network, then the median step of 10 and the
@@ -123,7 +138,7 @@ It fails unless every phase passes:
               1024^2, batch 8, bf16 under the policy with the least peak (3
               steps, finite, exact launches, ms and peak); PairedAttention
               under boundaries and full (REMAT_PAIRED_LAUNCHES, K1 59, K2
-              34, K3 2, K4 1; ms and peak beside [train]'s); the U-Net at
+              34, K3 2, K4 1, K6 19; ms and peak beside [train]'s); the U-Net at
               1024^2, batch 8, f32 with remat (the JAX segment CLI's case;
               no launch); python -m floodgan_tpu_torch.cli.train --remat on
               [cli]'s tiles (1 epoch, exact launches).
@@ -133,13 +148,25 @@ It fails unless every phase passes:
               DP_STEPS steps on a DataMesh against the plain trainer, which
               runs twice.  Every collective returns its input bit for bit,
               the launches are the same, step-1 losses are bit for bit;
-              where the two plain runs agree bit for bit (Pix2Pix: no
-              reflect pad), the mesh's run equals them in every loss and
-              parameter; where they do not (a reflect pad's backward
-              accumulates with atomics), step 2 within TOL_REMAT_STEP2.  The gradient
-              all-reduce's ms a step (CUDA events); a .sharded directory of
-              the AttentionGAN state written and read back bit for bit.
-14. spatial - the spatial axis of the mesh: the partial IN forms (K1s,
+              where the two plain runs agree bit for bit (the strict
+              branch), the mesh's run equals them in every loss and
+              parameter; where they do not (an op of the step that sums in
+              a run-dependent order, with PyTorch's deterministic
+              algorithms off), step 2 within TOL_REMAT_STEP2; each family's
+              branch is printed.  The gradient all-reduce's ms a step (CUDA
+              events); a .sharded directory of the AttentionGAN state
+              written and read back bit for bit.
+14. determinism - PairedAttention and AttentionGAN at 512^2, batch 8,
+              bf16, DET_STEPS steps twice from one seed under
+              torch.use_deterministic_algorithms(True)
+              (CUBLAS_WORKSPACE_CONFIG set for this phase only, restored
+              after it): no op raises, and the two runs agree bit for bit
+              in every loss and parameter (the reflect pad's backward is
+              K6, not ATen's atomics); launches exactly a step's each.
+              Then one fresh trainer times the step with the mode on and
+              off in turns: a warm-up step in each, FAMILY_TIMED steps in
+              each, the median of each and their ratio.
+15. spatial - the spatial axis of the mesh: the partial IN forms (K1s,
               K1a, K2s, K2a) against their plain versions at every IN site
               of one rank's bf16 S = 2 step (each plane split in rows as the
               mesh splits it, the PatchGAN's 63-row level as 32 + 31), with
@@ -150,7 +177,8 @@ It fails unless every phase passes:
               gloo ranks on card 0 (halos and sums staged through the host),
               PairedAttention at 512^2, global batch 8, bf16, D = 1, S = 2:
               each rank's first step launches exactly SPATIAL_STEP_LAUNCHES
-              (K1s/K1a/K2s/K2a 34 each, K3 and K4 once, fused K1/K2 none),
+              (K1s/K1a/K2s/K2a 34 each, K3 and K4 once, K6 19 (the W axis
+              of each reflect pad), fused K1/K2 none),
               losses against one process on the card from the same init
               (TOL_SPATIAL_STEP1, TOL_SPATIAL_UPDATED), the ranks' parameters
               equal bit for bit after 6 steps, then one step under remat
@@ -179,7 +207,7 @@ It fails unless every phase passes:
               (1 epoch): its .sharded directory holds each buffer as two row
               pieces, and a Model resumed from it on 2 gloo ranks holds
               every leaf bit for bit, each rank its buffer rows.
-15. compare - python -m floodgan_tpu_torch.cli.compare --compare models
+16. compare - python -m floodgan_tpu_torch.cli.compare --compare models
               --calculate_metrics on [cli]'s epoch-3 PairedAttention .ckpt
               and [families]' three, with [eval]'s seg .ckpt, on [cli]'s 8
               validation images at 512^2 (batch 1, LPIPS on the fallback
@@ -189,10 +217,10 @@ It fails unless every phase passes:
               launches K1 73 times and K3 twice, nothing else.  Prints the
               wall time and each model's mean Inference.  Then --compare two
               on the Pix2Pix and CycleGAN files.
-16. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
+17. train card-cpu - the same seeded PairedAttention trainer at 64^2, batch
               2, f32 (TF32 off) on the card and on the CPU (plain versions):
               step-1 and step-2 losses.
-17. etl     - the offline ETL (floodgan_tpu_torch.pre_processing) on raw
+18. etl     - the offline ETL (floodgan_tpu_torch.pre_processing) on raw
               rasters written from the seed into a temporary directory: 20
               image sets of one disaster at 1024^2 (a GeoTIFF pre-disaster
               image with ModelPixelScale and ModelTiepoint, the post image, a
@@ -209,7 +237,7 @@ It fails unless every phase passes:
               migrated back with python -m floodgan_tpu_torch.ckpt.migrate:
               parameters, Adam moments and counts bit for bit.  Prints the
               seconds of each ETL stage, the epoch, the export and migrate.
-18. load    - python -m floodgan_tpu_torch.tools.serve_bench through its
+19. load    - python -m floodgan_tpu_torch.tools.serve_bench through its
               main(): engine mode (batches 1 and 8, 20 iterations), then
               --frontend at 1/8/32 clients x 20 requests (engine batch 8,
               5 ms delay); every forward launches K1 25 times and K3 once,
@@ -222,12 +250,12 @@ It fails unless every phase passes:
               (each right) and 503s with "retry", nothing else.  Prints the
               bench's lines, the HTTP round trip's p50/p99 and each model's
               batch occupancy.
-19. bench   - python -m floodgan_tpu_torch.tools.bench through its main(),
+20. bench   - python -m floodgan_tpu_torch.tools.bench through its main(),
               each run with the launch counts set to 0 before and read
               after: --mode train at its defaults (the headline:
               PairedAttention, 512^2, batch 8, bf16, 5 warm-up steps, the
               first under FlopCounterMode, then 50 timed; K1 34, K2 34, K3 1,
-              K4 1 a step, exactly), again with --steps 10 (the same FLOPs a
+              K4 1, K6 19 a step, exactly), again with --steps 10 (the same FLOPs a
               sample), then --steps 10 for pix2pix, cyclegan, attentiongan
               (FAMILY_STEP_LAUNCHES a step) and unet (none); --mode eval
               --steps 10 (K1 25, K3 1 a batch); --mode pipeline at its
@@ -240,7 +268,7 @@ It fails unless every phase passes:
               the card print tflops_per_sec, mfu, peak_tflops; the pipeline's
               measured epochs come from the post-transform cache (hit rate
               1.0).  Prints each line and its wall time.
-20. dryrun  - tools/dryrun.py: dryrun_multichip(2, "cuda") on NCCL is
+21. dryrun  - tools/dryrun.py: dryrun_multichip(2, "cuda") on NCCL is
               refused on one card before any process starts; then its five
               phases (paired, cycle, seg, eval, spatial) on 2 gloo ranks on
               card 0 pass, each phase's wall time printed.
@@ -289,12 +317,44 @@ D_SITES = (
     ("63^2x512 leaky", (BATCH, 512, S // 8 - 1, S // 8 - 1)),
 )
 D_READS = 3
+# Reflect-pad sites of the driven steps (NCHW, the pad's input): (label,
+# shape, pads (left, right, top, bottom), sites a batch-8 512^2 paired step,
+# sites an AttentionGAN step).  Each reflect pad whose input needs a
+# gradient runs K6 once.  The rest are on no one-process 512^2 step and
+# count 0: the spatial axis's W-only pads (one rank of S = 2: the trunk's
+# 64 rows and 2 halo rows, the head's and the reconstructions' stem's 256
+# rows and 6) and [remat]'s AttentionGAN at 1024^2.
+PAD_SITES = (
+    ("trunk 128^2x256 pad 1", (BATCH, 256, S // 4, S // 4), (1, 1, 1, 1), 18, 72),
+    ("head 512^2x64 pad 3", (BATCH, 64, S, S), (3, 3, 3, 3), 1, 4),
+    ("stem 512^2x9 pad 3", (BATCH, 9, S, S), (3, 3, 3, 3), 0, 2),
+    ("spatial trunk W only", (BATCH, 256, S // 8 + 2, S // 4), (1, 1, 0, 0), 0, 0),
+    ("spatial head W only", (BATCH, 64, S // 2 + 6, S), (3, 3, 0, 0), 0, 0),
+    ("spatial stem W only", (BATCH, 9, S // 2 + 6, S), (3, 3, 0, 0), 0, 0),
+    ("remat trunk 256^2x256 pad 1", (BATCH, 256, S // 2, S // 2), (1, 1, 1, 1), 0, 0),
+    ("remat head 1024^2x64 pad 3", (BATCH, 64, 2 * S, 2 * S), (3, 3, 3, 3), 0, 0),
+    ("remat stem 1024^2x9 pad 3", (BATCH, 9, 2 * S, 2 * S), (3, 3, 3, 3), 0, 0),
+)
+PAD_EDGES = (
+    ((2, 5, 13, 11), (1, 1, 1, 1)), ((2, 5, 13, 11), (3, 3, 3, 3)), ((2, 5, 13, 11), (2, 0, 1, 3)),
+    ((1, 3, 2, 2), (1, 1, 1, 1)), ((1, 2, 7, 1), (0, 0, 3, 3)), ((1, 3, 4, 4), (3, 3, 3, 3)),
+    ((3, 4, 9, 33), (1, 1, 0, 0)), ((1, 70000, 3, 4), (1, 1, 1, 1)),
+)
 LR = 2e-4
 # The partial IN forms run only on the spatial axis ([spatial]); every other
 # path launches none of them.
 NO_PARTIAL = {"in_stats": 0, "in_apply": 0, "in_bwd_stats": 0, "in_bwd_apply": 0}
-TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL}
-SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
+# K6, the reflect pad's backward, runs once for each reflect pad whose input
+# needs a gradient: a generator read's 18 trunk convolutions and its head's
+# pad 3 (the content head of the attention generators, CycleGAN's RGB
+# head), and the stem's pad 3 where the generator reads a synthetic image
+# (the two cycle reconstructions).  A paired step reads the generator once
+# with a gradient: 19.
+GEN_PADS = 18 + 1
+TRAIN_STEP_LAUNCHES = {"in_act": 34, "in_bwd": 34, "compose": 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL,
+                       "reflect_pad_bwd": GEN_PADS}
+SERVE_LAUNCHES = {"in_act": 25, "in_bwd": 0, "compose": 1, "compose_bwd": 0, "copy": 0, **NO_PARTIAL,
+                  "reflect_pad_bwd": 0}
 COPY_SHAPE = (BATCH, S + 6, S + 6, 64)  # the head's input: the reflect-padded ConvT output, NHWC
 HEAD_ITERS = 20
 # [head] check: the variants sum the 49*64 taps in other orders (rowsum adds
@@ -347,44 +407,57 @@ TOL_GOLDEN = 2e-5
 # each 25 IN sites for the attention generator and 23 for CycleGAN's, and 4
 # PatchGAN reads of 3 IN sites (2 in the G loss, 2 concatenated in the D
 # update), each forward and backward; the attention generator one compose
-# per forward, each forward and backward.
-NO_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
+# per forward, each forward and backward; K6 GEN_PADS a generator read and
+# the 2 reconstructions' stem pads.
+NO_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL,
+               "reflect_pad_bwd": 0}
+CYCLE_PADS = 4 * GEN_PADS + 2
 FAMILY_STEP_LAUNCHES = {
     "pix2pix": NO_LAUNCHES,
-    "attentiongan": {"in_act": 112, "in_bwd": 112, "compose": 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL},
-    "attentiongan+identity": {"in_act": 162, "in_bwd": 162, "compose": 6, "compose_bwd": 6, "copy": 0, **NO_PARTIAL},
-    "cyclegan": {"in_act": 104, "in_bwd": 104, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL},
+    "attentiongan": {"in_act": 112, "in_bwd": 112, "compose": 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL,
+                     "reflect_pad_bwd": CYCLE_PADS},
+    "attentiongan+identity": {"in_act": 162, "in_bwd": 162, "compose": 6, "compose_bwd": 6, "copy": 0, **NO_PARTIAL,
+                              "reflect_pad_bwd": CYCLE_PADS + 2 * GEN_PADS},
+    "cyclegan": {"in_act": 104, "in_bwd": 104, "compose": 0, "compose_bwd": 0, "copy": 0, **NO_PARTIAL,
+                 "reflect_pad_bwd": CYCLE_PADS},
 }
 FAMILY_TIMED = 10
 FAMILY_CMP = {"pix2pix": 256, "cyclegan": 64, "attentiongan": 64}  # card against CPU, batch 2, f32
 FAMILIES = {"pix2pix": "Pix2Pix", "cyclegan": "CycleGAN", "attentiongan": "AttentionGAN"}
 # [compare]: the generator forwards of one image under --compare models.
-COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0, **NO_PARTIAL}
+COMPARE_LAUNCHES_PER_IMAGE = {"in_act": 25 + 25 + 23, "in_bwd": 0, "compose": 2, "compose_bwd": 0, "copy": 0, **NO_PARTIAL,
+                              "reflect_pad_bwd": 0}
 COMPARE_MODELS = ("PairedAttention", "Pix2Pix", "AttentionGAN", "CycleGAN")
 # [remat]: a recomputed generator read launches its forward kernels again
 # in the backward: 25 K1 and one K3 per attention-generator read, under every
 # policy.  Early stop leaves none out: the last op of each segment that saves
 # a tensor for the backward is an IN or the compose, whose autograd Function
 # packs its saved inputs after its kernel ran.  4 reads a cycle step, 1 a
-# paired step; no backward kernel runs more often.
+# paired step; no backward kernel runs more often (K6 neither: a recomputed
+# pad's forward is ATen's).
 REMAT_POLICIES = ("convs", "boundaries", "full")
-REMAT_CYCLE_LAUNCHES = {"in_act": 112 + 4 * 25, "in_bwd": 112, "compose": 4 + 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL}
-REMAT_PAIRED_LAUNCHES = {"in_act": 34 + 25, "in_bwd": 34, "compose": 1 + 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL}
+REMAT_CYCLE_LAUNCHES = {"in_act": 112 + 4 * 25, "in_bwd": 112, "compose": 4 + 4, "compose_bwd": 4, "copy": 0, **NO_PARTIAL,
+                        "reflect_pad_bwd": CYCLE_PADS}
+REMAT_PAIRED_LAUNCHES = {"in_act": 34 + 25, "in_bwd": 34, "compose": 1 + 1, "compose_bwd": 1, "copy": 0, **NO_PARTIAL,
+                         "reflect_pad_bwd": GEN_PADS}
 REMAT_TIMED = 10
 REMAT_BIG = 2 * S          # the xBD tile's native size
 REMAT_BIG_STEPS = 3
 SEG_REMAT_STEPS = 3        # the U-Net at REMAT_BIG, batch BATCH, f32 (floodgan_tpu/cli/segment.py:27)
 TOL_REMAT_STEP2 = 2e-3     # step-2 losses follow an Adam update (TOL_TRAIN_STEP2's reason)
 DP_STEPS = 2               # [dp]: steps compared bit for bit at world size 1
+DET_STEPS = 3              # [determinism]: steps of each run under deterministic algorithms
 # [spatial]: PairedAttention on the mesh's spatial axis, H over 2 ranks on
 # card 0 over gloo (NCCL refuses two ranks on one card).  One rank's step
 # launches, by the structure of the step: 34 IN sites (25 generator, 3
 # PatchGAN levels x 3 reads), each K1s and K1a forward and K2s and K2a
-# backward; the compose once each way; no fused K1/K2.  Under remat
-# boundaries the generator read's 25 forward sites and its compose run again.
+# backward; the compose once each way; no fused K1/K2; K6 for each reflect
+# pad's W axis, as in one process.  Under remat boundaries the generator
+# read's 25 forward sites and its compose run again.
 SPATIAL = 2
 SPATIAL_STEP_LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 1, "compose_bwd": 1, "copy": 0,
-                         "in_stats": 34, "in_apply": 34, "in_bwd_stats": 34, "in_bwd_apply": 34}
+                         "in_stats": 34, "in_apply": 34, "in_bwd_stats": 34, "in_bwd_apply": 34,
+                         "reflect_pad_bwd": GEN_PADS}
 SPATIAL_REMAT_LAUNCHES = {**SPATIAL_STEP_LAUNCHES, "compose": 2, "in_stats": 34 + 25, "in_apply": 34 + 25}
 SPATIAL_TIMED = 3
 # The other networks on the same 2 gloo ranks ([families]' widths: 512^2,
@@ -611,34 +684,49 @@ class _Total:
 
     def __init__(self):
         self.ms = self.plain_ms = self.bound_ms = self.err = 0.0
+        self.lib_ms = 0.0  # None once a site has no library call
         self.by = {"bytes": 0.0, "operations": 0.0}
 
-    def add(self, count, ms, plain_ms, b_ms, b_by, err):
+    def add(self, count, ms, plain_ms, b_ms, b_by, err, lib_ms=None):
         self.ms += count * ms
         self.plain_ms += count * plain_ms
         self.bound_ms += count * b_ms
         self.by[b_by] += count * b_ms
         self.err = max(self.err, err)
+        self.lib_ms = None if lib_ms is None or self.lib_ms is None else self.lib_ms + count * lib_ms
 
     def row(self, name, source, replaces):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": max(self.by, key=self.by.get), "library_ms": None}
+                "bound_by": max(self.by, key=self.by.get), "library_ms": self.lib_ms}
 
 
 def _in_case(gen, label, shape, dtype, relu, has_res, slope, backward):
     """One instance-norm site: K1 (or K2 with ``backward``) against its
-    plain version.  Returns (ms, plain_ms, bound_ms, bound_by, err)."""
+    plain version.  K1 also with its statistics out (held against the plain
+    statistics); K2 from K1's saved statistics, the training path's form
+    (held against the plain version and, bit for bit, against the form
+    that derives them again).  Returns (ms, plain_ms, bound_ms, bound_by,
+    err, other_ms): ms the main path's form (K1 without statistics, K2 from
+    them), other_ms the other form's (K1 with, K2 without)."""
     from floodgan_tpu_torch.ops import kernels
 
     x = _randn(shape, dtype, gen, mean=0.5)
     other = _randn(shape, dtype, gen) if (has_res or backward) else None
     at_kink = 0
+    _, stats = kernels.instance_norm_act_fwd(x, relu=relu, negative_slope=slope, save_stats=True)
+    _, stats_plain = kernels.instance_norm_act_plain(x, relu=relu, negative_slope=slope, save_stats=True)
+    stats_err = float((stats - stats_plain).abs().max())
+    check(stats.dtype == torch.float32 and stats.shape == (shape[0], shape[1], 2) and stats_err <= TOL_F32_IN,
+          f"{label}: K1's saved (mean, inv) off the plain ones by {stats_err}")
     if backward:
         other, at_kink = _off_kink(x, other, relu)
 
         def kern():
+            return kernels.instance_norm_act_bwd(x, other, relu=relu, negative_slope=slope, stats=stats)
+
+        def alt():
             return kernels.instance_norm_act_bwd(x, other, relu=relu, negative_slope=slope)
 
         def plain():
@@ -647,14 +735,22 @@ def _in_case(gen, label, shape, dtype, relu, has_res, slope, backward):
         def kern():
             return kernels.instance_norm_act_fwd(x, relu=relu, residual=other, negative_slope=slope)
 
+        def alt():
+            return kernels.instance_norm_act_fwd(x, relu=relu, residual=other, negative_slope=slope,
+                                                 save_stats=True)
+
         def plain():
             return kernels.instance_norm_act_plain(x, relu=relu, residual=other, negative_slope=slope)
 
     got, want = kern(), plain()
+    other_got = alt()
     torch.cuda.synchronize()
     check(got.dtype == dtype and got.shape == x.shape, f"{label}: bad output")
+    other_y = other_got if backward else other_got[0]
+    check(torch.equal(got.view(-1).view(torch.uint8), other_y.view(-1).view(torch.uint8)),
+          f"{label}: K{2 if backward else 1} with and without saved statistics differ")
     err, ok = _close(got, want, dtype, TOL_F32_IN)
-    ms, plain_ms = median_ms(kern), median_ms(plain)
+    ms, plain_ms, other_ms = median_ms(kern), median_ms(plain), median_ms(alt)
     lib_ms = None
     if not relu:
         # The no-activation IN: F.instance_norm forward, or its backward
@@ -671,12 +767,14 @@ def _in_case(gen, label, shape, dtype, relu, has_res, slope, backward):
     b_ms, b_by = bound_ms(x.numel() * x.element_size() * n_io, ops)
     name = "in_bwd" if backward else "in_act"
     kink = f", g zeroed at {at_kink} of {x.numel()} on the kink" if backward and relu else ""
+    forms = (f"from saved statistics, bit for bit the form without them (ms {other_ms:.4f})" if backward else
+             f"stats-out form ms {other_ms:.4f}, y bit for bit, (mean, inv) within {stats_err:.3g}")
     say("kernels", f"{name} {label} {str(dtype)[6:]} {tuple(shape)}: max_abs_err {err:.3g} "
                    f"(tol {_tol_text(dtype, TOL_F32_IN)}{kink}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                   f"bound_ms {b_ms:.4f} ({b_by}) library_ms {_fmt(lib_ms)}")
+                   f"bound_ms {b_ms:.4f} ({b_by}) library_ms {_fmt(lib_ms)}; {forms}")
     check(ok, f"{name} {label} {dtype}: max_abs_err {err} over tolerance")
-    del x, other, got, want
-    return ms, plain_ms, b_ms, b_by, err
+    del x, other, got, want, other_got, stats
+    return ms, plain_ms, b_ms, b_by, err, other_ms
 
 
 def _compose_inputs(gen, n, h, w, dtype):
@@ -795,21 +893,57 @@ def phase_copy_edges(gen) -> None:
                    "no byte outside written")
 
 
+def _pad_case(gen, label, shape, pads, dtype):
+    """K6 at one reflect-pad site (``shape`` the pad's input, ``pads`` in
+    F.pad's order) against its plain version, bit for bit, and against
+    itself over TIMED_RUNS launches; timed in turns with the plain version
+    and ATen's ``reflection_pad2d_backward`` at the same site.  Returns
+    (ms, plain_ms, bound_ms, bound_by, err, library_ms)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    left, right, top, bottom = pads
+    n, c, h, w = shape
+    g = _randn((n, c, h + top + bottom, w + left + right), dtype, gen)
+    x = torch.empty(shape, dtype=dtype, device="cuda")  # ATen's backward reads only its shape
+    got, want = kernels.reflect_pad_bwd(g, pads), kernels.reflect_pad_bwd_plain(g, pads)
+    aten = torch.ops.aten.reflection_pad2d_backward(g, x, list(pads))
+    torch.cuda.synchronize()
+    label = f"reflect_pad_bwd {label} {str(dtype)[6:]} {tuple(shape)} pads {tuple(pads)}"
+    check(got.shape == shape and _same_bits(got, want), f"{label}: not bit for bit the plain version")
+    same = all(_same_bits(kernels.reflect_pad_bwd(g, pads), got) for _ in range(TIMED_RUNS))
+    check(same, f"{label}: {TIMED_RUNS} repeated launches gave other bits")
+    aten_err = float((aten.float() - got.float()).abs().max())
+    t = _in_turns({"kernel": lambda: kernels.reflect_pad_bwd(g, pads),
+                   "plain": lambda: kernels.reflect_pad_bwd_plain(g, pads),
+                   "library": lambda: torch.ops.aten.reflection_pad2d_backward(g, x, list(pads))})
+    b_ms, b_by = bound_ms((g.numel() + got.numel()) * g.element_size(), g.numel() - got.numel())
+    say("kernels", f"{label}: bitwise, identical over {TIMED_RUNS} repeats, max_abs_err 0; ms {t['kernel']:.4f} "
+                   f"plain_ms {t['plain']:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms (ATen's "
+                   f"reflection_pad2d_backward) {t['library']:.4f}, |ATen - K6| max {aten_err:.3g}")
+    del g, x, got, want, aten
+    return t["kernel"], t["plain"], b_ms, b_by, 0.0, t["library"]
+
+
 def phase_kernels() -> dict:
     """Every kernel at the main paths' shapes.  Returns the JSON rows by
     kernel name: in_act and attention_compose over one f32 serving
-    forward (as in the first slice), in_bwd and attention_compose_bwd over
-    one bf16 train step, row_copy at the head's bf16 input."""
+    forward (as in the first slice), in_bwd (from saved statistics),
+    attention_compose_bwd and reflect_pad_bwd over one bf16 train step,
+    row_copy at the head's bf16 input."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
-    serve_in, train_in, train_bwd = _Total(), _Total(), _Total()
+    serve_in, train_in, train_in_stats, train_bwd, train_bwd_again = _Total(), _Total(), _Total(), _Total(), _Total()
 
     for label, shape, relu, res, n in IN_SITES:
-        serve_in.add(n, *_in_case(gen, label, shape, f32, relu, res, 0.0, False))
+        serve_in.add(n, *_in_case(gen, label, shape, f32, relu, res, 0.0, False)[:5])
     for label, shape, relu, res, n in IN_SITES:
-        train_in.add(n, *_in_case(gen, label, shape, bf16, relu, res, 0.0, False))
+        r = _in_case(gen, label, shape, bf16, relu, res, 0.0, False)
+        train_in.add(n, *r[:5])
+        train_in_stats.add(n, r[5], *r[1:5])
     for label, shape in D_SITES:
-        train_in.add(D_READS, *_in_case(gen, label, shape, bf16, True, False, 0.2, False))
+        r = _in_case(gen, label, shape, bf16, True, False, 0.2, False)
+        train_in.add(D_READS, *r[:5])
+        train_in_stats.add(D_READS, r[5], *r[1:5])
     for label, shape, relu, res in (
         ("128^2x256 leaky 0.2", (BATCH, 256, S // 4, S // 4), True, False),
         ("128^2x256 no act", (BATCH, 256, S // 4, S // 4), False, False),
@@ -823,11 +957,13 @@ def phase_kernels() -> dict:
             r = _in_case(gen, label.replace("residual", "no act (residual)"), shape, dtype,
                          relu, False, 0.0, True)
             if dtype == bf16:
-                train_bwd.add(n, *r)
+                train_bwd.add(n, *r[:5])
+                train_bwd_again.add(n, r[5], *r[1:5])
         for label, shape in D_SITES:
             r = _in_case(gen, label, shape, dtype, True, False, 0.2, True)
             if dtype == bf16:
-                train_bwd.add(D_READS, *r)
+                train_bwd.add(D_READS, *r[:5])
+                train_bwd_again.add(D_READS, r[5], *r[1:5])
 
     compose = _compose_case(gen, f32, False)
     _compose_case(gen, bf16, False)
@@ -838,12 +974,25 @@ def phase_kernels() -> dict:
     copy_ms, copy_plain, copy_bound, copy_by, copy_err, copy_lib = _row_copy_case(gen, bf16)  # the head's
     copy_err = max(copy_err, _row_copy_case(gen, f32)[4])
 
+    # K6 at each reflect-pad site of the paired and AttentionGAN steps.
+    pads_paired, pads_cycle = _Total(), _Total()
+    for label, shape, pads, n_paired, n_cycle in PAD_SITES:
+        _pad_case(gen, label, shape, pads, f32)
+        r = _pad_case(gen, label, shape, pads, bf16)
+        pads_paired.add(n_paired, *r)
+        pads_cycle.add(n_cycle, *r)
+
     say("kernels", f"in_act, the 25 f32 sites of one batch-{BATCH} {S}^2 forward: ms {serve_in.ms:.4f} "
                    f"plain_ms {serve_in.plain_ms:.4f} bound_ms {serve_in.bound_ms:.4f}")
     say("kernels", f"in_act, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_in.ms:.4f} "
+                   f"(with the statistics out, the training path's form, {train_in_stats.ms:.4f}) "
                    f"plain_ms {train_in.plain_ms:.4f} bound_ms {train_in.bound_ms:.4f}")
     say("kernels", f"in_bwd, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_bwd.ms:.4f} "
+                   f"from saved statistics ({train_bwd_again.ms:.4f} deriving them again) "
                    f"plain_ms {train_bwd.plain_ms:.4f} bound_ms {train_bwd.bound_ms:.4f}")
+    for what, t in (("paired", pads_paired), ("AttentionGAN", pads_cycle)):
+        say("kernels", f"reflect_pad_bwd, the bf16 sites of one batch-{BATCH} {S}^2 {what} step: ms {t.ms:.4f} "
+                       f"plain_ms {t.plain_ms:.4f} bound_ms {t.bound_ms:.4f} library_ms {_fmt(t.lib_ms)}")
     phase_kernel_edges(gen)
     phase_copy_edges(gen)
 
@@ -865,6 +1014,9 @@ def phase_kernels() -> dict:
                  "replaces": "tools/microbench_head.py:144", "launches": None, "max_abs_err": copy_err,
                  "ms": copy_ms, "plain_ms": copy_plain, "bound_ms": copy_bound, "bound_by": copy_by,
                  "library_ms": copy_lib},
+        # No Pallas kernel: the XLA adjoint of the JAX package's reflect pad.
+        "reflect_pad_bwd": pads_paired.row("reflect_pad_bwd", "floodgan_tpu_torch/csrc/reflect_pad.cu",
+                                           "floodgan_tpu/ops/fused_grads.py:256"),
     }
 
 
@@ -890,6 +1042,13 @@ def phase_kernel_edges(gen) -> None:
                     err, ok = _close(got, want, dtype, tol)
                     check(ok, f"{name} {shape} {dtype} relu={relu} slope={slope}: max_abs_err {err}")
                     worst[name] = max(worst[name], err)
+                y_stats, stats = kernels.instance_norm_act_fwd(x, relu=relu, residual=r, negative_slope=slope,
+                                                               save_stats=True)
+                pairs = ((y_stats, kernels.instance_norm_act_fwd(x, relu=relu, residual=r, negative_slope=slope)),
+                         (kernels.instance_norm_act_bwd(x, g, relu=relu, negative_slope=slope, stats=stats),
+                          kernels.instance_norm_act_bwd(x, g, relu=relu, negative_slope=slope)))
+                check(all(torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8)) for a, b in pairs),
+                      f"K1/K2 {shape} {dtype} relu={relu}: the saved-statistics forms differ from the others")
         content, logits, rgb, gout, gmask = _compose_inputs(gen, 2, 13, 11, dtype)
         pairs = [("compose", kernels.attention_compose_fwd(content, logits, rgb),
                   kernels.attention_compose_plain(content, logits, rgb))]
@@ -904,9 +1063,20 @@ def phase_kernel_edges(gen) -> None:
                     err, ok = _close(g, w, dtype, TOL_F32)
                     check(ok, f"{name} at 13x11 {dtype}: max_abs_err {err}")
                     worst[name] = max(worst[name], err)
+        for shape, pads in PAD_EDGES:
+            left, right, top, bottom = pads
+            n, c, h, w = shape
+            big = _randn((n * c * (h + top + bottom) * (w + left + right) + 1,), dtype, gen)
+            for g in (big[:-1].view(n, c, h + top + bottom, w + left + right),
+                      big[1:].view(n, c, h + top + bottom, w + left + right)):  # 2 or 4 bytes into the storage
+                check(_same_bits(kernels.reflect_pad_bwd(g, pads), kernels.reflect_pad_bwd_plain(g, pads)),
+                      f"reflect_pad_bwd {shape} pads {pads} {dtype} at byte {g.data_ptr() % 16}: not bit for bit")
     torch.cuda.synchronize()
     say("kernels", "edge shapes (odd H*W, scalar tails, strided rgb, f32 and bf16) within tolerance; "
-                   "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+                   "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+                   + "; K1 and K2 with saved statistics bit for bit the forms without; reflect_pad_bwd bit for "
+                     f"bit at {len(PAD_EDGES)} edge shapes (odd sizes, pads up to the dimension less one, "
+                     "one-sided, W only, 70000 planes past the grid's 65535, misaligned g)")
 
 
 def _state_dict():
@@ -1092,8 +1262,11 @@ def phase_head(smi) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
-    # one raw_pallasfence forward in check, and a warm-up plus HEAD_ITERS in the forward race
-    want = {k: 0 for k in counts} | {"copy": 2 + HEAD_ITERS}
+    # one raw_pallasfence forward in check, and a warm-up plus HEAD_ITERS in
+    # the forward race; the reflect pad's backward K6 in each call of the
+    # fwd+bwd race: a warm-up plus HEAD_ITERS for each variant with a backward
+    backward = set(microbench_head.HEADS) - set(microbench_head.FORWARD_ONLY)
+    want = {k: 0 for k in counts} | {"copy": 2 + HEAD_ITERS, "reflect_pad_bwd": (1 + HEAD_ITERS) * len(backward)}
     check(counts == want, f"the head microbench launched {counts}, expected {want}")
 
     top, diffs = chk["max_abs_raw"], chk["max_abs_diff"]
@@ -1108,7 +1281,6 @@ def phase_head(smi) -> dict:
     check(diffs["raw_pallasfence"] == 0.0,
           f"K5 then raw differs from raw by {diffs['raw_pallasfence']}; expected bit for bit")
 
-    backward = set(microbench_head.HEADS) - set(microbench_head.FORWARD_ONLY)
     check(set(both["ms"]) == backward and set(fwd["ms"]) == set(microbench_head.HEADS),
           f"race ran fwd+bwd {sorted(both['ms'])}, fwd {sorted(fwd['ms'])}")
     times = list(both["ms"].values()) + list(fwd["ms"].values())
@@ -1940,7 +2112,7 @@ def _serve_launches(model: str) -> dict:
 
 def phase_compare(smi, root: str, ckpts: dict, seg_ckpt: str) -> dict:
     """The comparison CLI on one .ckpt of each family (module docstring,
-    phase 14).  Returns the launch counts of its runs."""
+    phase 16).  Returns the launch counts of its runs."""
     import csv
     import glob
     import os
@@ -2308,13 +2480,16 @@ def phase_dp(smi) -> dict:
                 # Two plain runs agree bit for bit, so the mesh's run must too.
                 check(dp_losses == plain_losses and not differ,
                       f"{name}: {len(differ)} parameters and losses {dp_losses} against {plain_losses}")
-                held = (f"two plain runs agree bit for bit, and the mesh's {DP_STEPS} steps equal them (losses and "
-                        f"all {len(plain_params)} parameter tensors)")
+                held = (f"strict branch: two plain runs agree bit for bit, and the mesh's {DP_STEPS} steps equal "
+                        f"them (losses and all {len(plain_params)} parameter tensors)")
             else:
-                # A reflect pad's backward accumulates with atomics, so two plain runs part after step 1.
+                # Two plain runs part after step 1 where an op of the step sums in
+                # an order that changes from run to run (a cuDNN algorithm
+                # with atomics; [determinism] holds the steps with those off).
                 rel = max(abs(dp_losses[1][k] - plain_losses[1][k]) / abs(plain_losses[1][k]) for k in plain_losses[1])
                 check(rel <= TOL_REMAT_STEP2, f"{name}: step-2 losses {dp_losses[1]} against {plain_losses[1]}")
-                held = (f"two plain runs differ in {len(plain_spread)} of {len(plain_params)} tensors after "
+                held = (f"tolerance branch: two plain runs differ in {len(plain_spread)} of {len(plain_params)} "
+                        f"tensors after "
                         f"{DP_STEPS} steps (their step-1 losses agree); the mesh's step-1 losses equal the plain "
                         f"step's bit for bit, step-2 max rel diff {rel:.3g} (tol {TOL_REMAT_STEP2:g}), "
                         f"{len(differ)} tensors differ")
@@ -2353,6 +2528,113 @@ def phase_dp(smi) -> dict:
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    return total
+
+
+def _det_run(make, x, y) -> tuple:
+    """DET_STEPS steps of a fresh ``make()`` trainer under PyTorch's
+    deterministic algorithms: (the losses of each step, the parameters
+    after, the launches)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = make()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        losses = [_losses(trainer.train_step(x, y, LR, epoch=1, step=i)) for i in range(DET_STEPS)]
+        counts = dict(kernels.LAUNCHES)
+        params = {f"{n}.{k}": p.detach().clone() for n, m in _family_nets(trainer) for k, p in m.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del trainer
+    torch.cuda.empty_cache()
+    return losses, params, counts
+
+
+def _det_timing(make, x, y) -> tuple:
+    """The step's ms with the deterministic mode on and off, on one fresh
+    ``make()`` trainer: a warm-up step in each mode (cuDNN picks its
+    algorithms for each), then FAMILY_TIMED rounds of one step in each,
+    the order turned every round.  Returns ({mode: [ms, ...]}, the
+    launches of all its steps, the steps' losses)."""
+    from floodgan_tpu_torch.ops import kernels
+
+    trainer = make()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    times, losses = {True: [], False: []}, []
+    try:
+        for r in range(FAMILY_TIMED + 1):
+            for mode in (True, False) if r % 2 == 0 else (False, True):
+                torch.use_deterministic_algorithms(mode)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(_losses(trainer.train_step(x, y, LR, epoch=1, step=len(losses))))
+                torch.cuda.synchronize()
+                if r:  # round 0 is the warm-up
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = dict(kernels.LAUNCHES)
+    del trainer
+    torch.cuda.empty_cache()
+    return times, counts, losses
+
+
+def phase_determinism(smi) -> dict:
+    """PairedAttention and AttentionGAN under torch.use_deterministic_algorithms
+    (module docstring, phase 14).  Returns the launch counts of its runs."""
+    import os
+
+    from floodgan_tpu_torch.train.paired import PairedTrainer
+
+    x, y = _train_inputs(np.random.default_rng(SEED + 13), BATCH, S)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    runs = {
+        "pairedattention": (lambda: PairedTrainer("pairedattention", 9, compute_dtype="bfloat16", seed=SEED),
+                            TRAIN_STEP_LAUNCHES),
+        "attentiongan": (lambda: _family_trainer("attentiongan", None, S, "bfloat16"),
+                         FAMILY_STEP_LAUNCHES["attentiongan"]),
+    }
+    total = {k: 0 for k in NO_LAUNCHES}
+    # cuBLAS refuses deterministic mode without a fixed workspace; the steps'
+    # convolutions go to cuDNN, but a matrix product anywhere would need it.
+    # Set for this phase only: later phases and their children run without.
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        for name, (make, per_step) in runs.items():
+            first = _det_run(make, x, y)
+            again = _det_run(make, x, y)
+            times, timed_counts, timed_losses = _det_timing(make, x, y)
+            timed_steps = 2 * (FAMILY_TIMED + 1)
+            for losses, counts, steps in ((first[0], first[2], DET_STEPS), (again[0], again[2], DET_STEPS),
+                                          (timed_losses, timed_counts, timed_steps)):
+                want = {k: v * steps for k, v in per_step.items()}
+                check(counts == want, f"{name}: {steps} steps launched {counts}, expected {want}")
+                check(all(np.isfinite(v) for step in losses for v in step.values()), f"{name}: losses {losses}")
+                for k in total:
+                    total[k] += counts[k]
+            differ = [k for k in first[1] if not torch.equal(first[1][k], again[1][k])]
+            check(first[0] == again[0] and not differ,
+                  f"{name}: two deterministic runs differ in {len(differ)} parameter tensors, losses {first[0]} "
+                  f"against {again[0]}")
+            on_ms, off_ms = statistics.median(times[True]), statistics.median(times[False])
+            say("determinism", f"{name} {S}^2 batch {BATCH} bf16, {DET_STEPS} steps twice from seed {SEED} under "
+                               f"torch.use_deterministic_algorithms(True): losses and all {len(first[1])} parameter "
+                               f"tensors bit for bit; launches {first[2]} each run; step ms over {FAMILY_TIMED} "
+                               f"steps in each mode, in turns after a warm-up step in each, with the mode on "
+                               f"{[round(t, 3) for t in times[True]]} (median {on_ms:.3f}), off "
+                               f"{[round(t, 3) for t in times[False]]} (median {off_ms:.3f}), on/off "
+                               f"{on_ms / off_ms:.4f} ({smi})")
+            del first, again
+            torch.cuda.empty_cache()
+    finally:
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
     return total
 
 
@@ -2617,7 +2899,7 @@ def _spatial_baselines() -> dict:
 def _spatial_families(mesh, device, x, y) -> dict:
     """One rank's share of the other networks on the spatial axis: the
     cycle families, Pix2Pix and the U-Net, each trainer freed before the
-    next (module docstring, phase 14)."""
+    next (module docstring, phase 15)."""
     from floodgan_tpu_torch.core.device import full_f32
     from floodgan_tpu_torch.models.layers import set_data_mesh, set_spatial_mesh
     from floodgan_tpu_torch.ops import kernels
@@ -2752,7 +3034,7 @@ def _nccl_two_ranks_one_card(rank: int, port: int, out_dir: str) -> None:
 
 
 def phase_spatial(smi, train_figures, family_figures, root) -> tuple:
-    """The spatial axis (module docstring, phase 14).  Returns (the launch
+    """The spatial axis (module docstring, phase 15).  Returns (the launch
     counts of the two ranks' counted steps, the partial forms' JSON rows)."""
     import os
 
@@ -2861,7 +3143,7 @@ def _rel(got: dict, want: dict) -> dict:
 
 def _check_spatial_families(smi, ranks, base, family_figures) -> None:
     """The other networks' results from the two ranks against the
-    one-process references (module docstring, phase 14)."""
+    one-process references (module docstring, phase 15)."""
     a, b = ranks
     expected = {"attentiongan": SPATIAL_FAMILY_LAUNCHES["attentiongan"],
                 "identity": SPATIAL_FAMILY_LAUNCHES["attentiongan+identity"], "convs": SPATIAL_CONVS_LAUNCHES,
@@ -3058,7 +3340,7 @@ def _tree_differences(a, b, where="") -> list:
 def phase_etl(smi, root: str) -> tuple:
     """The offline ETL, then a training epoch on its dataset, the export to
     the reference's .pth.tar and the migration back (module docstring,
-    phase 16).  Returns the launch counts of its runs and the .ckpt."""
+    phase 18).  Returns the launch counts of its runs and the .ckpt."""
     import os
 
     from floodgan_tpu_torch.ckpt import load_checkpoint, migrate
@@ -3259,7 +3541,7 @@ def _http_post(url: str, arr: np.ndarray) -> tuple:
 
 def phase_load(smi, ckpt: str) -> dict:
     """Serving under load: the serve bench through its main(), then HTTP
-    over a repository of two models (module docstring, phase 17).  Returns
+    over a repository of two models (module docstring, phase 19).  Returns
     the launch counts of its runs."""
     import urllib.request
 
@@ -3420,7 +3702,7 @@ def _bench_line(line: dict, what: str, smi: str) -> None:
 
 def phase_bench(smi) -> dict:
     """The headline bench through its main() in each mode (module docstring,
-    phase 19).  Returns the launch counts of its runs."""
+    phase 20).  Returns the launch counts of its runs."""
     from floodgan_tpu_torch.tools import bench
 
     launches = _Launches()
@@ -3463,7 +3745,7 @@ def phase_bench(smi) -> dict:
 
 def phase_dryrun(smi) -> None:
     """tools/dryrun.py's five phases on DRYRUN_RANKS gloo ranks on card 0,
-    after NCCL on as many ranks is refused (module docstring, phase 20)."""
+    after NCCL on as many ranks is refused (module docstring, phase 21)."""
     from floodgan_tpu_torch.tools import dryrun
 
     try:
@@ -3520,6 +3802,7 @@ def main() -> int:
         families_counts, family_ckpts, family_figures = phase_families(smi, root, tests, step_rate)
         remat_counts = phase_remat(smi, root, family_figures["attentiongan"], train_figures)
         dp_counts = phase_dp(smi)
+        det_counts = phase_determinism(smi)
         spatial_counts, spatial_rows = phase_spatial(smi, train_figures, family_figures, root)
         rows.update(spatial_rows)
         compare_counts = phase_compare(smi, root, {"PairedAttention": gan_ckpt, **family_ckpts}, seg_ckpt)
@@ -3531,7 +3814,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     runs = {"serving": serve_counts, "training": train_counts, "head": head_counts, "cli": cli_counts,
             "eval": eval_counts, "families": families_counts, "remat": remat_counts, "dp": dp_counts,
-            "spatial": spatial_counts,
+            "determinism": det_counts, "spatial": spatial_counts,
             "compare": compare_counts, "etl": etl_counts, "load": load_counts, "bench": bench_counts}
     for k, row in rows.items():
         row["launches"] = sum(c[k] for c in runs.values())

@@ -11,26 +11,34 @@
 // all in f32, cast to the element type at the store.
 //
 // Backward (K2) replaces _in_bwd_kernel (launched by _in_pallas_bwd_call).
-// From the saved pre-norm x and the incoming g, per plane: the same
-// statistics, yhat = (x - mean) * inv, g~ = g * (yhat >= 0 ? 1 : slope) when
-// the activation is on, and dx = inv * (g~ - mean(g~) - yhat * mean(g~ *
+// From the saved pre-norm x and the incoming g, per plane: the statistics,
+// yhat = (x - mean) * inv, g~ = g * (yhat >= 0 ? 1 : slope) when the
+// activation is on, and dx = inv * (g~ - mean(g~) - yhat * mean(g~ *
 // yhat)), in f32, cast at the store.  The residual's gradient is g itself
 // and takes no kernel.
+//
+// Saved statistics: K1 writes each plane's (mean, inv) as two floats when
+// it is given a buffer for them (the training path, as
+// floodgan_tpu/ops/fused_grads.py:_in_act_fwd saves (x, mean, inv)), and K2
+// given that buffer reads them instead of deriving them again.  Both kernels
+// derive them with the same plane_stats code in the same block shape, so
+// K2 from saved statistics gives the bits of K2 without them.
 //
 // Layout: NCHW-contiguous, so each (n, c) plane is one contiguous run.  One
 // block per plane.  K1 makes two passes: statistics (16-byte loads, sums
 // reduced through warp shuffles and shared memory), then the apply.  K2
-// makes three: statistics; sum(g~) and sum(g~ * yhat); dx.  A misaligned
-// plane (H*W not a multiple of the vector width) takes scalar loads; the
-// tail after the last full vector is scalar too.
+// makes two from saved statistics: sum(g~) and sum(g~ * yhat); dx; and
+// without them a statistics pass of x first.  A misaligned plane (H*W not a
+// multiple of the vector width) takes scalar loads; the tail after the last
+// full vector is scalar too.
 //
 // Bound: memory.  The least traffic is one read of each input and one
 // write of the output; the arithmetic is a few operations per element, far
-// below the card's rate.  K1 reads x twice and K2 reads x three times and g
-// twice, because a 512^2 f32 plane (1 MB) does not fit in a block's 227 KB
-// of shared memory.  Keeping the plane on chip (a cluster of blocks per
-// plane, or a split reduction), or saving (mean, inv) from the forward for
-// K2, is later work; the measured times stand beside the bounds in PERF.md.
+// below the card's rate.  K1 reads x twice; K2 reads x and g twice (three
+// times x without saved statistics), because a 512^2 f32 plane (1 MB) does
+// not fit in a block's 227 KB of shared memory.  Keeping the plane on chip
+// (a cluster of blocks per plane, or a split reduction) is later work; the
+// measured times stand beside the bounds in PERF.md.
 //
 // The partial forms serve a plane whose rows are split over the ranks of
 // the mesh's spatial axis (parallel/spatial.py).  JAX runs the Pallas
@@ -237,10 +245,11 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b, const vo
            reinterpret_cast<uintptr_t>(c)) & 15u) == 0;
 }
 
+// stats, when not null, receives each plane's (mean, inv).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 in_act_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
-              long long hw, int relu, float slope, float eps) {
+              float* __restrict__ stats, long long hw, int relu, float slope, float eps) {
   constexpr int V = Pack<T>::N;
   const long long base = static_cast<long long>(blockIdx.x) * hw;
   const T* xp = x + base;
@@ -250,23 +259,28 @@ in_act_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict_
   const long long tail = nvec * V;
   // Pass 1: statistics.  Pass 2: normalize, activate, add the residual, store.
   const float2 st = plane_stats(xp, nvec, tail, hw, eps);
+  if (stats != nullptr && threadIdx.x == 0) {
+    stats[2 * blockIdx.x] = st.x;
+    stats[2 * blockIdx.x + 1] = st.y;
+  }
   apply_plane(xp, rp, yp, nvec, tail, hw, st.x, st.y, relu, slope);
 }
 
 template <typename T>
-int launch_in_act(const void* x, const void* res, void* y, long long planes, long long hw,
-                  int relu, float slope, float eps, void* stream) {
+int launch_in_act(const void* x, const void* res, void* y, void* stats, long long planes,
+                  long long hw, int relu, float slope, float eps, void* stream) {
   in_act_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y), hw, relu,
-      slope, eps);
+      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y),
+      static_cast<float*>(stats), hw, relu, slope, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+// stats, when not null, holds each plane's (mean, inv) as K1 wrote them.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
-              long long hw, int relu, float slope, float eps) {
+in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ stats,
+              T* __restrict__ dx, long long hw, int relu, float slope, float eps) {
   constexpr int V = Pack<T>::N;
   const long long base = static_cast<long long>(blockIdx.x) * hw;
   const T* xp = x + base;
@@ -274,20 +288,23 @@ in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ 
   T* dp = dx + base;
   const long long nvec = aligned16(xp, gp, dp) ? hw / V : 0;
   const long long tail = nvec * V;
-  // Pass 1: statistics of x.  Pass 2: sum(g~) and sum(g~ * yhat).  Pass 3: dx.
-  const float2 st = plane_stats(xp, nvec, tail, hw, eps);
+  // The statistics of x: saved, or a pass over x.  Then sum(g~) and
+  // sum(g~ * yhat), then dx.
+  const float2 st = stats != nullptr
+                        ? make_float2(stats[2 * blockIdx.x], stats[2 * blockIdx.x + 1])
+                        : plane_stats(xp, nvec, tail, hw, eps);
   const float2 gs = bwd_sums(xp, gp, nvec, tail, hw, st.x, st.y, relu, slope);
   const float n = static_cast<float>(hw);
   bwd_apply(xp, gp, dp, nvec, tail, hw, st.x, st.y, gs.x / n, gs.y / n, relu, slope);
 }
 
 template <typename T>
-int launch_in_bwd(const void* x, const void* g, void* dx, long long planes, long long hw,
-                  int relu, float slope, float eps, void* stream) {
+int launch_in_bwd(const void* x, const void* g, const void* stats, void* dx, long long planes,
+                  long long hw, int relu, float slope, float eps, void* stream) {
   in_bwd_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), hw, relu, slope,
-      eps);
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(stats),
+      static_cast<T*>(dx), hw, relu, slope, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,32 +431,34 @@ int launch_in_bwd_apply(const void* x, const void* g, const void* stats, const v
 
 }  // namespace
 
-// x, res (may be null), y: planes * hw contiguous elements.  Returns the
+// x, res (may be null), y: planes * hw contiguous elements; stats (may be
+// null): 2 * planes floats, each plane's (mean, inv) written.  Returns the
 // cudaError_t of the launch (0 on success).
-extern "C" int floodgan_in_act_f32(const void* x, const void* res, void* y, long long planes,
-                                   long long hw, int relu, float slope, float eps,
-                                   void* stream) {
-  return launch_in_act<float>(x, res, y, planes, hw, relu, slope, eps, stream);
+extern "C" int floodgan_in_act_f32(const void* x, const void* res, void* y, void* stats,
+                                   long long planes, long long hw, int relu, float slope,
+                                   float eps, void* stream) {
+  return launch_in_act<float>(x, res, y, stats, planes, hw, relu, slope, eps, stream);
 }
 
-extern "C" int floodgan_in_act_bf16(const void* x, const void* res, void* y, long long planes,
-                                    long long hw, int relu, float slope, float eps,
-                                    void* stream) {
-  return launch_in_act<__nv_bfloat16>(x, res, y, planes, hw, relu, slope, eps, stream);
+extern "C" int floodgan_in_act_bf16(const void* x, const void* res, void* y, void* stats,
+                                    long long planes, long long hw, int relu, float slope,
+                                    float eps, void* stream) {
+  return launch_in_act<__nv_bfloat16>(x, res, y, stats, planes, hw, relu, slope, eps, stream);
 }
 
 // x (the forward's input), g (the gradient of its output), dx: planes * hw
-// contiguous elements.  Returns the cudaError_t of the launch.
-extern "C" int floodgan_in_bwd_f32(const void* x, const void* g, void* dx, long long planes,
-                                   long long hw, int relu, float slope, float eps,
-                                   void* stream) {
-  return launch_in_bwd<float>(x, g, dx, planes, hw, relu, slope, eps, stream);
+// contiguous elements; stats (may be null): K1's (mean, inv) of each plane.
+// Returns the cudaError_t of the launch.
+extern "C" int floodgan_in_bwd_f32(const void* x, const void* g, const void* stats, void* dx,
+                                   long long planes, long long hw, int relu, float slope,
+                                   float eps, void* stream) {
+  return launch_in_bwd<float>(x, g, stats, dx, planes, hw, relu, slope, eps, stream);
 }
 
-extern "C" int floodgan_in_bwd_bf16(const void* x, const void* g, void* dx, long long planes,
-                                    long long hw, int relu, float slope, float eps,
-                                    void* stream) {
-  return launch_in_bwd<__nv_bfloat16>(x, g, dx, planes, hw, relu, slope, eps, stream);
+extern "C" int floodgan_in_bwd_bf16(const void* x, const void* g, const void* stats, void* dx,
+                                    long long planes, long long hw, int relu, float slope,
+                                    float eps, void* stream) {
+  return launch_in_bwd<__nv_bfloat16>(x, g, stats, dx, planes, hw, relu, slope, eps, stream);
 }
 
 // The partial forms.  stats: 2 * planes + 1 floats (module note above);

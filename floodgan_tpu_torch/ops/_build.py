@@ -38,12 +38,12 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.
 # C entry points and their argument types.  Every pointer and the stream
 # are c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
 SIGNATURES = {
-    # x, residual (or NULL), y, planes, hw, relu, slope, eps, stream
-    "floodgan_in_act_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
-    "floodgan_in_act_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
-    # x, g, dx, planes, hw, relu, slope, eps, stream
-    "floodgan_in_bwd_f32": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
-    "floodgan_in_bwd_bf16": (_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    # x, residual (or NULL), y, stats out (or NULL), planes, hw, relu, slope, eps, stream
+    "floodgan_in_act_f32": (_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    "floodgan_in_act_bf16": (_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    # x, g, saved stats (or NULL), dx, planes, hw, relu, slope, eps, stream
+    "floodgan_in_bwd_f32": (_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
+    "floodgan_in_bwd_bf16": (_P, _P, _P, _P, _I64, _I64, _I32, _F32, _F32, _P),
     # The partial forms: x, stats, planes, hw, rows, stream
     "floodgan_in_stats_f32": (_P, _P, _I64, _I64, _F32, _P),
     "floodgan_in_stats_bf16": (_P, _P, _I64, _I64, _F32, _P),
@@ -65,6 +65,9 @@ SIGNATURES = {
     "floodgan_attention_compose_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # src, dst, bytes, stream
     "floodgan_row_copy": (_P, _P, _I64, _P),
+    # g, dx, planes, h, w, left, right, top, bottom, stream
+    "floodgan_reflect_pad_bwd_f32": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P),
+    "floodgan_reflect_pad_bwd_bf16": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

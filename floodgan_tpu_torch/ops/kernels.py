@@ -3,12 +3,19 @@ their autograd Functions and their launch counters.
 
 - ``instance_norm_act_fwd`` (csrc/instance_norm.cu, K1) replaces the TPU
   kernel ``_in_fwd_kernel`` of floodgan_tpu/ops/pallas_kernels.py, and
-  ``instance_norm_act_bwd`` (K2, same file) replaces ``_in_bwd_kernel``;
+  ``instance_norm_act_bwd`` (K2, same file) replaces ``_in_bwd_kernel``.
+  K1 can also write each plane's (mean, inv), and K2 can read them
+  instead of deriving them again, as floodgan_tpu/ops/fused_grads.py's
+  ``in_act`` saves them for its backward;
 - ``attention_compose_fwd`` (csrc/attention_compose.cu, K3) replaces
   ``_compose_kernel``, and ``attention_compose_bwd`` (K4, same file)
   replaces ``_compose_bwd_kernel``;
 - ``row_copy_fwd`` (csrc/row_copy.cu, K5) replaces ``copy_kernel``, the
   Pallas layout fence of tools/microbench_head.py;
+- ``reflect_pad_bwd`` (csrc/reflect_pad.cu, K6) is the backward of reflect
+  padding, the deterministic slice-and-add adjoint that
+  floodgan_tpu/ops/fused_grads.py:_rp_bwd writes in XLA (no Pallas
+  kernel there); ATen's backward of the pad scatters with atomics;
 - the partial forms of K1 and K2 (csrc/instance_norm.cu) serve a plane
   whose rows are split over the ranks of the mesh's spatial axis:
   ``instance_norm_stats`` (K1s) and ``instance_norm_apply`` (K1a) around a
@@ -17,9 +24,10 @@ their autograd Functions and their launch counters.
   around a sum of the per-plane gradient sums.  JAX runs K1/K2 on a
   gathered tensor there (a ``pallas_call`` cannot be partitioned).
 
-``InstanceNormAct``, ``SpatialInstanceNormAct`` and ``AttentionCompose`` pair each forward with its
-backward, as the JAX package's custom VJPs do; ``instance_norm_act`` and
-``attention_compose`` are the entry points the models call.  With grad
+``InstanceNormAct``, ``SpatialInstanceNormAct``, ``AttentionCompose`` and ``ReflectPad`` pair each
+forward with its backward, as the JAX package's custom VJPs do;
+``instance_norm_act``, ``attention_compose`` and ``reflect_pad`` are the
+entry points (``ops.fused_grads`` holds JAX's names over them).  With grad
 disabled they launch the forward kernels only.  ``RowCopy`` (entry point
 ``row_copy``) has a forward only, as the Pallas fence has.
 
@@ -41,7 +49,7 @@ import torch
 from floodgan_tpu_torch.ops import _build
 
 LAUNCHES = {"in_act": 0, "in_bwd": 0, "compose": 0, "compose_bwd": 0, "copy": 0,
-            "in_stats": 0, "in_apply": 0, "in_bwd_stats": 0, "in_bwd_apply": 0}
+            "in_stats": 0, "in_apply": 0, "in_bwd_stats": 0, "in_bwd_apply": 0, "reflect_pad_bwd": 0}
 
 EPS = 1e-5
 
@@ -89,11 +97,13 @@ def instance_norm_act_plain(
     residual: Optional[torch.Tensor] = None,
     negative_slope: float = 0.0,
     eps: float = EPS,
-) -> torch.Tensor:
+    save_stats: bool = False,
+):
     """InstanceNorm2d (no affine, biased variance) + optional
     ``where(y >= 0, y, slope * y)`` + optional residual, on NCHW.  The
     kernel's arithmetic: f32 statistics in the E[x^2] - mean^2 form, f32
-    apply, one cast to x's dtype at the end."""
+    apply, one cast to x's dtype at the end.  With ``save_stats`` returns
+    (y, stats): each plane's (mean, inv), shaped (N, C, 2)."""
     x32 = _f32(x)
     mean, inv = _plane_stats(x32, eps)
     y = (x32 - mean) * inv
@@ -101,7 +111,8 @@ def instance_norm_act_plain(
         y = torch.where(y >= 0.0, y, y * negative_slope)
     if residual is not None:
         y = y + _f32(residual)
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    return (y, torch.cat([mean, inv], dim=3).view(x.shape[0], x.shape[1], 2)) if save_stats else y
 
 
 def instance_norm_act_bwd_plain(
@@ -110,15 +121,20 @@ def instance_norm_act_bwd_plain(
     relu: bool = False,
     negative_slope: float = 0.0,
     eps: float = EPS,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """dx of ``instance_norm_act_plain`` from its input x and the gradient
-    g of its output, in K2's order: the statistics again, yhat, g~ = g *
-    (yhat >= 0 ? 1 : slope) with the activation on, then dx = inv * (g~ -
-    mean(g~) - yhat * mean(g~ * yhat)); f32, one cast to x's dtype.  The
-    residual's gradient is g itself."""
+    g of its output, in K2's order: the statistics (``stats``, the forward's
+    saved (mean, inv), or derived again), yhat, g~ = g * (yhat >= 0 ? 1 :
+    slope) with the activation on, then dx = inv * (g~ - mean(g~) - yhat *
+    mean(g~ * yhat)); f32, one cast to x's dtype.  The residual's gradient
+    is g itself."""
     x32 = _f32(x)
     g32 = _f32(g)
-    mean, inv = _plane_stats(x32, eps)
+    if stats is None:
+        mean, inv = _plane_stats(x32, eps)
+    else:
+        mean, inv = stats.to(x32.dtype).unsqueeze(-1).unsqueeze(-1).unbind(2)
     yh = (x32 - mean) * inv
     if relu:
         g32 = torch.where(yh >= 0.0, g32, g32 * negative_slope)
@@ -150,25 +166,30 @@ def instance_norm_act_fwd(
     residual: Optional[torch.Tensor] = None,
     negative_slope: float = 0.0,
     eps: float = EPS,
-) -> torch.Tensor:
+    save_stats: bool = False,
+):
     """K1: IN(+activation)(+residual) over an NCHW tensor: the CUDA kernel
     for a CUDA tensor (f32 or bf16, contiguous), the plain version for a
-    CPU tensor.  With both, the activation applies before the add."""
+    CPU tensor.  With both, the activation applies before the add.  With
+    ``save_stats`` returns (y, stats): each plane's f32 (mean, inv), shaped
+    (N, C, 2), written by the same launch."""
     if x.device.type == "cpu":
-        return instance_norm_act_plain(x, relu, residual, negative_slope, eps)
+        return instance_norm_act_plain(x, relu, residual, negative_slope, eps, save_stats)
     _in_cuda_checks(x, "instance_norm_act")
     if residual is not None:
         _same_layout(residual, x, "residual", "instance_norm_act")
     n, c, h, w = x.shape
     y = torch.empty_like(x)
+    stats = torch.empty((n, c, 2), device=x.device, dtype=torch.float32) if save_stats else None
     if y.numel() == 0:
-        return y
+        return (y, stats) if save_stats else y
     fn = getattr(_build.library(), _IN_ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             y.data_ptr(),
+            stats.data_ptr() if save_stats else None,
             n * c,
             h * w,
             int(relu),
@@ -178,7 +199,7 @@ def instance_norm_act_fwd(
         )
     _check_launch(err, "instance_norm_act")
     LAUNCHES["in_act"] += 1
-    return y
+    return (y, stats) if save_stats else y
 
 
 def instance_norm_act_bwd(
@@ -187,16 +208,23 @@ def instance_norm_act_bwd(
     relu: bool = False,
     negative_slope: float = 0.0,
     eps: float = EPS,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2: dx of ``instance_norm_act_fwd`` from the saved input x and the
     output's gradient g: the CUDA kernel for CUDA tensors (f32 or bf16,
     both contiguous, of one dtype and shape), the plain version for CPU
-    tensors."""
+    tensors.  ``stats``, K1's saved (mean, inv) of x, spares the kernel its
+    pass over x for them; the result is the same."""
     if x.device.type == "cpu":
-        return instance_norm_act_bwd_plain(x, g, relu, negative_slope, eps)
-    _in_cuda_checks(x, "instance_norm_act_bwd")
-    _same_layout(g, x, "g", "instance_norm_act_bwd")
+        return instance_norm_act_bwd_plain(x, g, relu, negative_slope, eps, stats)
+    name = "instance_norm_act_bwd"
+    _in_cuda_checks(x, name)
+    _same_layout(g, x, "g", name)
     n, c, h, w = x.shape
+    if stats is not None and (stats.device != x.device or stats.dtype != torch.float32
+                              or stats.shape != (n, c, 2) or not stats.is_contiguous()):
+        raise ValueError(f"{name}: stats must be a contiguous f32 ({n}, {c}, 2) on {x.device}, "
+                         f"got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
@@ -205,6 +233,7 @@ def instance_norm_act_bwd(
         err = fn(
             x.data_ptr(),
             g.data_ptr(),
+            stats.data_ptr() if stats is not None else None,
             dx.data_ptr(),
             n * c,
             h * w,
@@ -213,29 +242,36 @@ def instance_norm_act_bwd(
             float(eps),
             _stream(x),
         )
-    _check_launch(err, "instance_norm_act_bwd")
+    _check_launch(err, name)
     LAUNCHES["in_bwd"] += 1
     return dx
 
 
 class InstanceNormAct(torch.autograd.Function):
-    """K1 forward, K2 backward.  Saves the pre-norm x only, as
-    ``_fused_in_fwd`` does; the backward recomputes the statistics.  The
-    residual's gradient passes g through."""
+    """K1 forward, K2 backward.  Where x needs a gradient, K1 also writes
+    each plane's (mean, inv) and the Function saves (x, stats), as
+    ``fused_grads._in_act_fwd`` saves (x, mean, inv), so K2 reads them
+    instead of deriving them again.  The residual's gradient passes g
+    through."""
 
     @staticmethod
     def forward(ctx, x, residual, relu, negative_slope, eps):
-        ctx.save_for_backward(x)
         ctx.args = (relu, negative_slope, eps)
         ctx.has_residual = residual is not None
-        return instance_norm_act_fwd(x, relu, residual, negative_slope, eps)
+        if not ctx.needs_input_grad[0]:
+            return instance_norm_act_fwd(x, relu, residual, negative_slope, eps)
+        y, stats = instance_norm_act_fwd(x, relu, residual, negative_slope, eps, save_stats=True)
+        ctx.save_for_backward(x, stats)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
         relu, negative_slope, eps = ctx.args
         g = g.contiguous()  # autograd may hand over a view
-        dx = instance_norm_act_bwd(x, g, relu, negative_slope, eps) if ctx.needs_input_grad[0] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            x, stats = ctx.saved_tensors
+            dx = instance_norm_act_bwd(x, g, relu, negative_slope, eps, stats)
         dres = g if ctx.has_residual and ctx.needs_input_grad[1] else None
         return dx, dres, None, None, None
 
@@ -705,3 +741,86 @@ def row_copy(x: torch.Tensor) -> torch.Tensor:
     """The layout fence of the content-head microbench: K5 on the card, the
     plain version on the CPU.  Differentiating through it raises."""
     return RowCopy.apply(x)
+
+
+# ============================================================ reflect pad
+
+_REFLECT_BWD_ENTRY = {torch.float32: "floodgan_reflect_pad_bwd_f32",
+                      torch.bfloat16: "floodgan_reflect_pad_bwd_bf16"}
+
+
+def _fold_axis(g: torch.Tensor, lo: int, hi: int, dim: int) -> torch.Tensor:
+    """The adjoint of reflect padding ``g``'s ``dim`` by (lo, hi): the
+    interior, then the flipped top block added at offsets 1..lo, then the
+    flipped bottom block at n-hi-1..n-2, each add rounded to g's dtype
+    (fused_grads.py:_rp_axis_adjoint's order)."""
+    n = g.shape[dim] - lo - hi
+    core = g.narrow(dim, lo, n).clone()
+    if lo:
+        core.narrow(dim, 1, lo).add_(g.narrow(dim, 0, lo).flip(dim))
+    if hi:
+        core.narrow(dim, n - hi - 1, hi).add_(g.narrow(dim, n + lo, hi).flip(dim))
+    return core
+
+
+def reflect_pad_bwd_plain(g: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """dx of ``F.pad(x, pads, mode="reflect")`` on NCHW, ``pads`` in F.pad's
+    order (left, right, top, bottom), from the padded output's gradient g:
+    the H axis folded first, then W.  K6's function."""
+    left, right, top, bottom = pads
+    return _fold_axis(_fold_axis(g, top, bottom, 2), left, right, 3)
+
+
+def reflect_pad_bwd(g: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """K6: the backward of reflect padding by ``pads`` (left, right, top,
+    bottom): the CUDA kernel for a contiguous NCHW CUDA tensor (f32 or
+    bf16), the plain version for a CPU tensor.  Deterministic, and equal
+    to the plain version bit for bit."""
+    if g.device.type == "cpu":
+        return reflect_pad_bwd_plain(g, pads)
+    name = "reflect_pad_bwd"
+    if g.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {g.device}")
+    if g.dim() != 4 or not g.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous NCHW gradient, got shape {tuple(g.shape)} "
+                         f"strides {g.stride()}")
+    if g.dtype not in _REFLECT_BWD_ENTRY:
+        raise ValueError(f"{name}: no kernel for {g.dtype}")
+    left, right, top, bottom = pads
+    n, c, hp, wp = g.shape
+    h, w = hp - top - bottom, wp - left - right
+    if min(pads) < 0 or max(top, bottom) >= h or max(left, right) >= w:
+        raise ValueError(f"{name}: pads {tuple(pads)} do not fit a padded {hp}x{wp} plane "
+                         "(each must be smaller than the dimension it pads)")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"{name}: a {h}x{w} plane exceeds the kernel's 2^31 elements")
+    dx = torch.empty((n, c, h, w), device=g.device, dtype=g.dtype)
+    if dx.numel() == 0:
+        return dx
+    fn = getattr(_build.library(), _REFLECT_BWD_ENTRY[g.dtype])
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), dx.data_ptr(), n * c, h, w, left, right, top, bottom, _stream(g))
+    _check_launch(err, name)
+    LAUNCHES["reflect_pad_bwd"] += 1
+    return dx
+
+
+class ReflectPad(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` forward (a gather, deterministic), K6
+    backward.  Saves nothing: the backward needs only the pads."""
+
+    @staticmethod
+    def forward(ctx, x, pads):
+        ctx.pads = pads
+        return torch.nn.functional.pad(x, pads, mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reflect_pad_bwd(g.contiguous(), ctx.pads), None
+
+
+def reflect_pad(x: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Reflect padding of NCHW x by ``pads`` (left, right, top, bottom),
+    differentiable: K6 backward on the card, the plain version on the
+    CPU."""
+    return ReflectPad.apply(x, tuple(int(p) for p in pads))

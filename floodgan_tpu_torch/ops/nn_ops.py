@@ -4,13 +4,16 @@ Twins of the image-space subset of floodgan_tpu/ops/nn_ops.py.  The JAX
 package's phase-space lowerings re-express the same math for the TPU's
 layout and are not ported.  Convolutions are F.conv2d and
 F.conv_transpose2d (the twins of ``conv2d`` and ``conv_transpose2d``
-there); instance norm goes to the hand-written kernel on the card.  With a
-spatial group (the mesh's ``spatial`` axis) the reflect pads read their
-halo rows from the neighbouring ranks and the instance norm reduces its
-statistics over the group (``parallel.spatial``).  The
-U-Net's batch norm and max-pool were XLA ops there, not Pallas kernels,
-and are ATen ops here; batch norm spells out its statistics so that a
-data mesh can make them global.
+there).  Instance norm and the reflect pads go through ``ops.fused_grads``
+and their hand-written gradients, as the JAX package's default route
+does (its ``custom_vjp_norms``): the instance norm's kernels on the card,
+the reflect pad's backward kernel.  With a spatial group (the mesh's
+``spatial`` axis) the reflect pads read their halo rows from the
+neighbouring ranks and the instance norm reduces its statistics over the
+group (``parallel.spatial``).  The U-Net's batch norm and max-pool were
+XLA ops there, not Pallas kernels, and are ATen ops here; batch norm
+spells out its statistics, and its closed-form backward its two sums, so
+that a data mesh can make them global (``fused_grads`` re-exports it).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from floodgan_tpu_torch.ops.kernels import instance_norm_act
+from floodgan_tpu_torch.ops import fused_grads, kernels
 from floodgan_tpu_torch.parallel import spatial as spatial_lib
 
 __all__ = [
@@ -33,10 +36,11 @@ def reflect_pad2d(x: torch.Tensor, pad: int, spatial=None, layer: str = "reflect
     """ReflectionPad2d(pad) on (H, W).  With a ``spatial`` group
     (``parallel.spatial.SpatialGroup``) x holds this rank's rows of each
     image: the rows beyond them come from the neighbouring ranks, and only
-    the image's own top and bottom reflect."""
+    the image's own top and bottom reflect.  Without one,
+    ``fused_grads.reflect_pad2d``."""
     if spatial is not None:
         return spatial_lib.reflect_pad2d(x, pad, spatial, layer)
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    return fused_grads.reflect_pad2d(x, pad)
 
 
 def reflect_conv2d(
@@ -46,7 +50,27 @@ def reflect_conv2d(
     """conv2d(reflect_pad2d(x, pad), w, b) for odd k = 2*pad+1 kernels (the
     trunk's pad-1 3x3 shape); ``w`` is OIHW.  ``spatial`` as for
     ``reflect_pad2d``."""
+    fused_grads.check_reflect_kernel(w, pad)
     return F.conv2d(reflect_pad2d(x, pad, spatial, layer), w, b)
+
+
+def instance_norm_act(
+    x: torch.Tensor,
+    relu: bool = False,
+    residual: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.0,
+    eps: float = kernels.EPS,
+    spatial=None,
+) -> torch.Tensor:
+    """IN(+activation)(+residual) over NCHW: ``fused_grads.in_act`` and
+    ``in_act_res`` (K1 forward, K2 backward from the saved statistics).
+    With a ``spatial`` group x holds this rank's rows of each plane, and
+    the statistics are the group's sums (``kernels.instance_norm_act``)."""
+    if spatial is not None:
+        return kernels.instance_norm_act(x, relu, residual, negative_slope, eps, spatial)
+    if residual is None:
+        return fused_grads.in_act(x, relu, negative_slope, eps)
+    return fused_grads.in_act_res(x, residual, relu, negative_slope, eps)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

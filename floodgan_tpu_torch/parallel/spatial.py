@@ -47,6 +47,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from floodgan_tpu_torch.ops import kernels
+
+
 def row_stripe(height: int, index: int, count: int) -> Tuple[int, int]:
     """Half-open [start, stop) row range of spatial rank ``index`` of
     ``count``: JAX's even split of H over the ``spatial`` axis."""
@@ -188,8 +191,9 @@ def halo_pad(x: torch.Tensor, top: int, bot: int, edge_top: int, edge_bot: int, 
 def reflect_pad2d(x: torch.Tensor, pad: int, group: SpatialGroup, layer: str = "reflect pad") -> torch.Tensor:
     """``ReflectionPad2d(pad)`` of the whole image, on this shard: ``pad``
     halo rows each side, reflected at the image's own edges, and W
-    reflect-padded as it is."""
-    return F.pad(halo_pad(x, pad, pad, pad, pad, "reflect", group, layer), (pad, pad, 0, 0), mode="reflect")
+    reflect-padded as it is (``kernels.reflect_pad``: its backward is K6,
+    deterministic)."""
+    return kernels.reflect_pad(halo_pad(x, pad, pad, pad, pad, "reflect", group, layer), (pad, pad, 0, 0))
 
 
 def conv2d_rows(x: torch.Tensor, conv: torch.nn.Conv2d, top: int, bot: int, group: SpatialGroup,

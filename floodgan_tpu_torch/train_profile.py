@@ -9,8 +9,9 @@ seeded init (``PairedTrainer`` for PairedAttention and Pix2Pix,
 then ``iters`` steps under
 ``torch.profiler`` with the batch already on the card.  Prints one JSON
 line: the host wall time per step, the device's busy share of it, the
-device time per step by category (convolutions, the port's four kernels,
-reflect pads, cuDNN layout transforms, Adam, copies and casts, the rest),
+device time per step by category (convolutions, the port's kernels,
+reflect pads (ATen's forward; K6 is the backward), cuDNN layout
+transforms, Adam, copies and casts, the rest),
 the kernels that take the most time, and the convolution FLOPs of one step
 (forward and backward, counted by ``FlopCounterMode``) with the rate the
 convolutions reached.  Needs a CUDA card.
@@ -39,6 +40,7 @@ from floodgan_tpu_torch.train.paired import PairedTrainer
 # Ahead of the serving categories: first match wins.
 TRAIN_CATEGORIES = (
     ("in_bwd (K2)", ("in_bwd_kernel",)),
+    ("reflect_pad_bwd (K6)", ("reflect_pad_bwd_kernel",)),
     ("attention_compose_bwd (K4)", ("compose_bwd_kernel",)),
     ("cuDNN layout transform", ("nchwtonhwc", "nhwctonchw")),
     ("Adam", ("multi_tensor_apply",)),

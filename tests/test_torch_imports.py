@@ -28,7 +28,7 @@ def test_scan_covers_the_port():
     names = {str(p.relative_to(ROOT)) for p in SCANNED}
     port = "floodgan_tpu_torch/"
     assert {port + m for m in (
-        "serve.py", "ops/kernels.py", "models/attention.py", "models/patchgan.py", "train/paired.py",
+        "serve.py", "ops/kernels.py", "ops/fused_grads.py", "models/attention.py", "models/patchgan.py", "train/paired.py",
         "tools/microbench_head.py", "ckpt/_msgpack.py", "ckpt/checkpoint.py", "ckpt/migrate.py",
         "utils/jax_params.py", "utils/profiling.py", "utils/png.py", "data/tiff.py", "data/native.py",
         "data/splits.py", "data/pipeline.py", "api/paths.py", "api/model.py", "cli/train.py", "cli/predict.py",

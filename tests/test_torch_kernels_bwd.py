@@ -211,7 +211,7 @@ def test_backward_on_cpu_tensors_launches_nothing(rng):
     out.sum().backward()
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {"in_act", "in_bwd", "compose", "compose_bwd", "copy",
-                                     "in_stats", "in_apply", "in_bwd_stats", "in_bwd_apply"}
+                                     "in_stats", "in_apply", "in_bwd_stats", "in_bwd_apply", "reflect_pad_bwd"}
 
 
 def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
