@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (floodgan_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k6-parent DIR   # also time DIR's K6 in turns at each reflect-pad site
+    python3 chip_smoke.py --k6-only         # device, build and K6's cases only; no result line
 
 Drives the port's main paths at full width: serving and paired training of
 PairedAttention (topography "all", 9 input channels) at 512^2, the
@@ -38,9 +40,13 @@ It fails unless every phase passes:
               with its median time (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time (K6: ATen's
-              reflection_pad2d_backward); then odd edge shapes and
+              reflection_pad2d_backward; K6's share of its bound, and with
+              --k6-parent the parent's time); then odd edge shapes and
               misaligned pointers (K6 also one-sided and W-only pads, pads
-              one less than the dimension, 70000 planes).
+              one less than the dimension, 70000 planes, a plane shorter
+              than a band, H one row over whole bands, rows of no multiple
+              of 16 bytes, g at every byte offset 0-14 and g ending its
+              block).
 4. engine   - InferenceEngine at batch 8 and batch 1 from a seeded init: one
               predict launches the IN kernel 25 times and compose once, and
               no backward kernel; the output is finite, in [0, 1]; latency
@@ -335,11 +341,44 @@ PAD_SITES = (
     ("remat head 1024^2x64 pad 3", (BATCH, 64, 2 * S, 2 * S), (3, 3, 3, 3), 0, 0),
     ("remat stem 1024^2x9 pad 3", (BATCH, 9, 2 * S, 2 * S), (3, 3, 3, 3), 0, 0),
 )
+# K6 off the main paths: (shape, pads).  Odd sizes, pads up to the
+# dimension less one, one-sided and W-only pads, 70000 planes; a plane
+# shorter than one band; the border zones filling the plane (top = bottom =
+# H - 1); rows whose bytes are no multiple of 16 (130 bf16 are 260 bytes);
+# rows so wide that two f32 stages do not fit a block (one stage a block).
+# pad_band_edges adds the shapes that sit on the band plan's own edges.
 PAD_EDGES = (
     ((2, 5, 13, 11), (1, 1, 1, 1)), ((2, 5, 13, 11), (3, 3, 3, 3)), ((2, 5, 13, 11), (2, 0, 1, 3)),
     ((1, 3, 2, 2), (1, 1, 1, 1)), ((1, 2, 7, 1), (0, 0, 3, 3)), ((1, 3, 4, 4), (3, 3, 3, 3)),
     ((3, 4, 9, 33), (1, 1, 0, 0)), ((1, 70000, 3, 4), (1, 1, 1, 1)),
+    ((2, 3, 5, 300), (1, 1, 1, 1)), ((2, 3, 4, 9), (2, 3, 3, 3)), ((1, 2, 6, 7), (6, 6, 5, 5)),
+    ((2, 3, 9, 17), (0, 3, 0, 2)), ((2, 3, 9, 17), (3, 0, 2, 0)), ((2, 3, 9, 17), (0, 0, 2, 0)),
+    ((2, 3, 9, 17), (2, 1, 0, 0)), ((2, 4, 40, 130), (1, 1, 1, 1)), ((1, 2, 33, 131), (3, 3, 3, 3)),
+    ((1, 2, 9, 5000), (3, 3, 3, 3)),
 )
+# A g that ends where its allocation ends: the last 16-byte chunk of g is
+# the last of the block, so a widened copy must not reach past it.
+PAD_AT_END = ((3, 5, 37, 45), (1, 1, 1, 1))
+PAD_AT_END_BYTES = 2 ** 21  # the block g ends: a size the allocator gives as it is
+
+
+def pad_band_edges(itemsize: int) -> tuple:
+    """K6's shapes on the band plan's edges for elements of ``itemsize``
+    bytes: H one row more than a whole number of bands, the row a band of
+    its own (no bottom pad) or joining the last band (bottom pad 1), over
+    600- to 1200-byte padded rows."""
+    from floodgan_tpu_torch.ops import kernels
+
+    cases = []
+    for w, pads in ((300, (1, 1, 1, 0)), (300, (1, 1, 3, 1))):
+        for h in range(2, 4096):
+            plan = kernels.reflect_pad_bands(h, w, pads, itemsize)
+            if plan.count >= 2 and h % plan.rows == 1:
+                cases.append(((2, 3, h, w), pads))
+                break
+    return tuple(cases)
+
+
 LR = 2e-4
 # The partial IN forms run only on the spatial axis ([spatial]); every other
 # path launches none of them.
@@ -893,12 +932,61 @@ def phase_copy_edges(gen) -> None:
                    "no byte outside written")
 
 
+# K6 of another checkout (``--k6-parent``): a function (g, pads) -> dx,
+# timed in turns beside this tree's K6 at every reflect-pad site.
+K6_PARENT = None
+
+
+def _parent_reflect_pad_bwd(root: str, build_dir: str):
+    """K6 of the port's checkout at ``root``: its csrc/reflect_pad.cu built
+    alone into ``build_dir`` with this tree's nvcc flags, called through
+    its C entry as that checkout's _build.SIGNATURES lists it (without or
+    with the band plan, which this tree's ``reflect_pad_bands`` gives)."""
+    import ctypes
+    import importlib.util
+    import os
+
+    from floodgan_tpu_torch.ops import _build, kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "k6_parent_build", os.path.join(root, "floodgan_tpu_torch", "ops", "_build.py"))
+    theirs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(theirs)
+    lib_path = os.path.join(build_dir, "libk6_parent.so")
+    _build._run_all([[_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib_path,
+                      os.path.join(root, "floodgan_tpu_torch", "csrc", "reflect_pad.cu")]])
+    lib = ctypes.CDLL(lib_path)
+    entries = {}
+    for dtype, name in ((torch.float32, "floodgan_reflect_pad_bwd_f32"),
+                        (torch.bfloat16, "floodgan_reflect_pad_bwd_bf16")):
+        fn = getattr(lib, name)
+        fn.argtypes = list(theirs.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        entries[dtype] = (fn, len(theirs.SIGNATURES[name]) == 14)
+
+    def run(g, pads):
+        fn, banded = entries[g.dtype]
+        left, right, top, bottom = pads
+        n, c, hp, wp = g.shape
+        h, w = hp - top - bottom, wp - left - right
+        dx = torch.empty((n, c, h, w), device=g.device, dtype=g.dtype)
+        plan = tuple(kernels.reflect_pad_bands(h, w, tuple(pads), g.element_size())) if banded else ()
+        err = fn(g.data_ptr(), dx.data_ptr(), n * c, h, w, left, right, top, bottom, *plan,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's reflect_pad_bwd: cudaError {err}")
+        return dx
+
+    return run
+
+
 def _pad_case(gen, label, shape, pads, dtype):
     """K6 at one reflect-pad site (``shape`` the pad's input, ``pads`` in
     F.pad's order) against its plain version, bit for bit, and against
-    itself over TIMED_RUNS launches; timed in turns with the plain version
-    and ATen's ``reflection_pad2d_backward`` at the same site.  Returns
-    (ms, plain_ms, bound_ms, bound_by, err, library_ms)."""
+    itself over TIMED_RUNS launches; timed in turns with the plain version,
+    ATen's ``reflection_pad2d_backward`` at the same site and, with
+    ``--k6-parent``, the parent's K6 (bit for bit this one).  Returns
+    (ms, plain_ms, bound_ms, bound_by, err, library_ms, the parent's ms or
+    None)."""
     from floodgan_tpu_torch.ops import kernels
 
     left, right, top, bottom = pads
@@ -913,15 +1001,85 @@ def _pad_case(gen, label, shape, pads, dtype):
     same = all(_same_bits(kernels.reflect_pad_bwd(g, pads), got) for _ in range(TIMED_RUNS))
     check(same, f"{label}: {TIMED_RUNS} repeated launches gave other bits")
     aten_err = float((aten.float() - got.float()).abs().max())
-    t = _in_turns({"kernel": lambda: kernels.reflect_pad_bwd(g, pads),
-                   "plain": lambda: kernels.reflect_pad_bwd_plain(g, pads),
-                   "library": lambda: torch.ops.aten.reflection_pad2d_backward(g, x, list(pads))})
+    fns = {"kernel": lambda: kernels.reflect_pad_bwd(g, pads),
+           "plain": lambda: kernels.reflect_pad_bwd_plain(g, pads),
+           "library": lambda: torch.ops.aten.reflection_pad2d_backward(g, x, list(pads))}
+    if K6_PARENT is not None:
+        check(_same_bits(K6_PARENT(g, pads), got), f"{label}: the parent's K6 gave other bits")
+        fns["parent"] = lambda: K6_PARENT(g, pads)
+    t = _in_turns(fns)
     b_ms, b_by = bound_ms((g.numel() + got.numel()) * g.element_size(), g.numel() - got.numel())
+    parent = f", the parent's K6 ms {t['parent']:.4f}" if "parent" in t else ""
     say("kernels", f"{label}: bitwise, identical over {TIMED_RUNS} repeats, max_abs_err 0; ms {t['kernel']:.4f} "
-                   f"plain_ms {t['plain']:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms (ATen's "
-                   f"reflection_pad2d_backward) {t['library']:.4f}, |ATen - K6| max {aten_err:.3g}")
+                   f"plain_ms {t['plain']:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / t['kernel']:.2f} of it) "
+                   f"library_ms (ATen's reflection_pad2d_backward) {t['library']:.4f}, |ATen - K6| max "
+                   f"{aten_err:.3g}{parent}")
     del g, x, got, want, aten
-    return t["kernel"], t["plain"], b_ms, b_by, 0.0, t["library"]
+    return t["kernel"], t["plain"], b_ms, b_by, 0.0, t["library"], t.get("parent")
+
+
+def phase_pads(gen) -> tuple:
+    """K6 at each reflect-pad site of the paired and AttentionGAN steps
+    (f32, then bf16), then its edge shapes.  Returns the bf16 totals of a
+    paired and of an AttentionGAN step."""
+    pads_paired, pads_cycle = _Total(), _Total()
+    parent = {"paired": 0.0, "AttentionGAN": 0.0}
+    for label, shape, pads, n_paired, n_cycle in PAD_SITES:
+        _pad_case(gen, label, shape, pads, torch.float32)
+        *r, parent_ms = _pad_case(gen, label, shape, pads, torch.bfloat16)
+        pads_paired.add(n_paired, *r)
+        pads_cycle.add(n_cycle, *r)
+        if parent_ms is not None:
+            parent["paired"] += n_paired * parent_ms
+            parent["AttentionGAN"] += n_cycle * parent_ms
+    for what, t in (("paired", pads_paired), ("AttentionGAN", pads_cycle)):
+        of_parent = f" (the parent's K6 {parent[what]:.4f})" if K6_PARENT is not None else ""
+        say("kernels", f"reflect_pad_bwd, the bf16 sites of one batch-{BATCH} {S}^2 {what} step: ms {t.ms:.4f}"
+                       f"{of_parent} plain_ms {t.plain_ms:.4f} bound_ms {t.bound_ms:.4f} "
+                       f"({t.bound_ms / t.ms:.2f} of it) library_ms {_fmt(t.lib_ms)}")
+    phase_pad_edges(gen)
+    return pads_paired, pads_cycle
+
+
+def phase_pad_edges(gen) -> None:
+    """K6 bit for bit its plain version at every edge shape, f32 and bf16,
+    with g at every byte offset 0-14 into its storage that its element
+    allows (the copies' widened windows, the shifted reads), and once
+    ending at the last byte of its block."""
+    from floodgan_tpu_torch.ops import kernels
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.empty((), dtype=dtype).element_size()
+        for shape, pads in PAD_EDGES + pad_band_edges(es):
+            left, right, top, bottom = pads
+            n, c, h, w = shape
+            padded = (n, c, h + top + bottom, w + left + right)
+            numel = n * c * padded[2] * padded[3]
+            big = _randn((numel + 16 // es,), dtype, gen)
+            check(big.data_ptr() % 16 == 0, "a fresh block is not 16-byte aligned")
+            for off in range(0, 15, es):
+                g = big[off // es:off // es + numel].view(padded)
+                plan = kernels.reflect_pad_bands(h, w, pads, es)
+                check(_same_bits(kernels.reflect_pad_bwd(g, pads), kernels.reflect_pad_bwd_plain(g, pads)),
+                      f"reflect_pad_bwd {shape} pads {pads} {dtype} at byte {off} ({plan}): not bit for bit")
+                cases += 1
+        shape, pads = PAD_AT_END
+        left, right, top, bottom = pads
+        padded = (shape[0], shape[1], shape[2] + top + bottom, shape[3] + left + right)
+        nbytes = padded[0] * padded[1] * padded[2] * padded[3] * es
+        block = torch.empty(PAD_AT_END_BYTES, dtype=torch.uint8, device="cuda")
+        g = block[PAD_AT_END_BYTES - nbytes:].view(dtype).view(padded)
+        g.copy_(_randn(padded, dtype, gen))
+        check(g.data_ptr() + nbytes == block.data_ptr() + PAD_AT_END_BYTES, "g does not end its block")
+        check(_same_bits(kernels.reflect_pad_bwd(g, pads), kernels.reflect_pad_bwd_plain(g, pads)),
+              f"reflect_pad_bwd {shape} pads {pads} {dtype} at the end of its block: not bit for bit")
+        cases += 1
+        del big, block, g
+    torch.cuda.synchronize()
+    say("kernels", f"reflect_pad_bwd bit for bit at {cases} edge cases: {len(PAD_EDGES)} shapes and the band "
+                   "plan's edges (H one row over whole bands, the row its own band or the last's), f32 and "
+                   "bf16, g at every byte offset 0-14 its element allows; and g ending its block")
 
 
 def phase_kernels() -> dict:
@@ -974,13 +1132,7 @@ def phase_kernels() -> dict:
     copy_ms, copy_plain, copy_bound, copy_by, copy_err, copy_lib = _row_copy_case(gen, bf16)  # the head's
     copy_err = max(copy_err, _row_copy_case(gen, f32)[4])
 
-    # K6 at each reflect-pad site of the paired and AttentionGAN steps.
-    pads_paired, pads_cycle = _Total(), _Total()
-    for label, shape, pads, n_paired, n_cycle in PAD_SITES:
-        _pad_case(gen, label, shape, pads, f32)
-        r = _pad_case(gen, label, shape, pads, bf16)
-        pads_paired.add(n_paired, *r)
-        pads_cycle.add(n_cycle, *r)
+    pads_paired, _ = phase_pads(gen)
 
     say("kernels", f"in_act, the 25 f32 sites of one batch-{BATCH} {S}^2 forward: ms {serve_in.ms:.4f} "
                    f"plain_ms {serve_in.plain_ms:.4f} bound_ms {serve_in.bound_ms:.4f}")
@@ -990,9 +1142,6 @@ def phase_kernels() -> dict:
     say("kernels", f"in_bwd, the 34 bf16 sites of one batch-{BATCH} {S}^2 train step: ms {train_bwd.ms:.4f} "
                    f"from saved statistics ({train_bwd_again.ms:.4f} deriving them again) "
                    f"plain_ms {train_bwd.plain_ms:.4f} bound_ms {train_bwd.bound_ms:.4f}")
-    for what, t in (("paired", pads_paired), ("AttentionGAN", pads_cycle)):
-        say("kernels", f"reflect_pad_bwd, the bf16 sites of one batch-{BATCH} {S}^2 {what} step: ms {t.ms:.4f} "
-                       f"plain_ms {t.plain_ms:.4f} bound_ms {t.bound_ms:.4f} library_ms {_fmt(t.lib_ms)}")
     phase_kernel_edges(gen)
     phase_copy_edges(gen)
 
@@ -1063,20 +1212,10 @@ def phase_kernel_edges(gen) -> None:
                     err, ok = _close(g, w, dtype, TOL_F32)
                     check(ok, f"{name} at 13x11 {dtype}: max_abs_err {err}")
                     worst[name] = max(worst[name], err)
-        for shape, pads in PAD_EDGES:
-            left, right, top, bottom = pads
-            n, c, h, w = shape
-            big = _randn((n * c * (h + top + bottom) * (w + left + right) + 1,), dtype, gen)
-            for g in (big[:-1].view(n, c, h + top + bottom, w + left + right),
-                      big[1:].view(n, c, h + top + bottom, w + left + right)):  # 2 or 4 bytes into the storage
-                check(_same_bits(kernels.reflect_pad_bwd(g, pads), kernels.reflect_pad_bwd_plain(g, pads)),
-                      f"reflect_pad_bwd {shape} pads {pads} {dtype} at byte {g.data_ptr() % 16}: not bit for bit")
     torch.cuda.synchronize()
     say("kernels", "edge shapes (odd H*W, scalar tails, strided rgb, f32 and bf16) within tolerance; "
                    "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-                   + "; K1 and K2 with saved statistics bit for bit the forms without; reflect_pad_bwd bit for "
-                     f"bit at {len(PAD_EDGES)} edge shapes (odd sizes, pads up to the dimension less one, "
-                     "one-sided, W only, 70000 planes past the grid's 65535, misaligned g)")
+                   + "; K1 and K2 with saved statistics bit for bit the forms without")
 
 
 def _state_dict():
@@ -3783,11 +3922,33 @@ def phase_train_card_vs_cpu() -> None:
               f"step {step}: card and CPU losses differ by {rel[step - 1]} (tol {tol})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    global K6_PARENT
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k6-parent", metavar="DIR",
+                    help="a checkout of the port whose K6 is timed in turns beside this tree's at every "
+                         "reflect-pad site ([kernels])")
+    ap.add_argument("--k6-only", action="store_true",
+                    help="stop after K6's sites and edge shapes (device, build, K6); prints no result line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    rows = phase_kernels()
+    parent_build = tempfile.mkdtemp(prefix="k6_parent_") if args.k6_parent else None
+    try:
+        if args.k6_parent:
+            K6_PARENT = _parent_reflect_pad_bwd(args.k6_parent, parent_build)
+        if args.k6_only:
+            phase_pads(torch.Generator(device="cuda").manual_seed(SEED))
+            say("done", f"K6 only: device, build and K6 passed in {time.perf_counter() - t_start:.1f} s")
+            return 0
+        rows = phase_kernels()
+    finally:
+        K6_PARENT = None
+        if parent_build:
+            shutil.rmtree(parent_build, ignore_errors=True)
     sd = _state_dict()
     engine = phase_engine(sd, smi)
     serve_counts = phase_requests(engine)

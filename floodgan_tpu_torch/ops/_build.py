@@ -65,9 +65,10 @@ SIGNATURES = {
     "floodgan_attention_compose_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # src, dst, bytes, stream
     "floodgan_row_copy": (_P, _P, _I64, _P),
-    # g, dx, planes, h, w, left, right, top, bottom, stream
-    "floodgan_reflect_pad_bwd_f32": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P),
-    "floodgan_reflect_pad_bwd_bf16": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P),
+    # g, dx, planes, h, w, left, right, top, bottom, then the band plan
+    # (band rows, bands, stage bytes, stages), stream
+    "floodgan_reflect_pad_bwd_f32": (_P, _P, _I64, *(_I32,) * 10, _P),
+    "floodgan_reflect_pad_bwd_bf16": (_P, _P, _I64, *(_I32,) * 10, _P),
 }
 
 _lock = threading.Lock()

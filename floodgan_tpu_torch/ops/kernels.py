@@ -42,7 +42,8 @@ Layout is NCHW: an instance-norm plane is one contiguous (n, c) slice.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -771,6 +772,79 @@ def reflect_pad_bwd_plain(g: torch.Tensor, pads: Tuple[int, int, int, int]) -> t
     return _fold_axis(_fold_axis(g, top, bottom, 2), left, right, 3)
 
 
+# K6's band plan.  A tile of the kernel is one band of a plane's output
+# rows across the whole width; one bulk copy stages the padded rows that
+# the band folds from (one contiguous span of g) in shared memory.
+REFLECT_STAGE_BYTES = 36 * 1024  # a stage's aim: three blocks of two stages fill an SM's 228 KB
+SHARED_MEMORY_MAX = 232448       # the most dynamic shared memory a block may take (H100: 227 KB)
+_BARRIER_BYTES = 128             # the stages' mbarriers, ahead of the first stage (reflect_pad.cu)
+
+
+class PadBands(NamedTuple):
+    """How K6 cuts a plane: ``rows`` output rows a band (the last band
+    holds the rest: fewer, or up to ``bottom`` more), ``count`` bands a
+    plane, ``stage_bytes`` of shared memory a stage, ``stages`` stages a
+    block (2, or 1 where two do not fit)."""
+
+    rows: int
+    count: int
+    stage_bytes: int
+    stages: int
+
+
+def reflect_pad_band_spans(h: int, pads: Tuple[int, int, int, int], rows: int, count: int) -> tuple:
+    """Each band's (h0, h1, q0, q1): its output rows [h0, h1) and the padded
+    rows [q0, q1) that they fold from, as the kernel's ``tile_at`` computes
+    them."""
+    _, _, top, bottom = pads
+    spans = []
+    for i in range(count):
+        h0 = i * rows
+        h1 = h if i == count - 1 else h0 + rows
+        spans.append((h0, h1, 0 if h0 == 0 else h0 + top, h + top + bottom if h1 == h else h1 + top))
+    return tuple(spans)
+
+
+def _stage_bytes(span_bytes: int) -> int:
+    """A stage for a span: its 16-byte aligned window (the span may start
+    up to 15 bytes into a chunk), 16 bytes that the shifted read of a row's
+    last run may reach past it, rounded to 128."""
+    return ((span_bytes + 30) // 16 * 16 + 16 + 127) // 128 * 128
+
+
+@functools.lru_cache(maxsize=256)
+def reflect_pad_bands(h: int, w: int, pads: Tuple[int, int, int, int], itemsize: int) -> PadBands:
+    """K6's band plan for (h, w) planes padded by ``pads`` (left, right,
+    top, bottom) in elements of ``itemsize`` bytes: as many rows a band as
+    fit a stage of ``REFLECT_STAGE_BYTES``, but never a band boundary
+    inside a border zone (the first band holds rows 0..top, the last rows
+    h-1-bottom..h-1; a remainder of ``bottom`` rows or fewer joins the last
+    band)."""
+    left, right, top, bottom = pads
+    row = (w + left + right) * itemsize
+    fit = (REFLECT_STAGE_BYTES - 46) // row  # padded rows whose stage fits the aim
+    least = max(top, bottom) + 1
+
+    def widest(rows):
+        count = h // rows + (1 if h % rows > bottom else 0)
+        return count, max(q1 - q0 for _, _, q0, q1 in reflect_pad_band_spans(h, pads, rows, count))
+
+    rows = min(h, max(least, fit - max(top, bottom)))
+    while rows > least and widest(rows)[1] > fit:
+        rows -= 1
+    count, span = widest(rows)
+    stage = _stage_bytes(span * row)
+    return PadBands(rows, count, stage, 2 if _BARRIER_BYTES + 2 * stage <= SHARED_MEMORY_MAX else 1)
+
+
+def reflect_pad_band_window(start: int, span_rows: int, wp: int, itemsize: int) -> Tuple[int, int]:
+    """The bytes [lo, hi) that K6's bulk copy moves for a span of
+    ``span_rows`` padded rows of ``wp`` elements starting at byte address
+    ``start``: the span widened to whole 16-byte chunks."""
+    end = start + span_rows * wp * itemsize
+    return start // 16 * 16, (end + 15) // 16 * 16
+
+
 def reflect_pad_bwd(g: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
     """K6: the backward of reflect padding by ``pads`` (left, right, top,
     bottom): the CUDA kernel for a contiguous NCHW CUDA tensor (f32 or
@@ -794,12 +868,16 @@ def reflect_pad_bwd(g: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.T
                          "(each must be smaller than the dimension it pads)")
     if h * w >= 2 ** 31:
         raise ValueError(f"{name}: a {h}x{w} plane exceeds the kernel's 2^31 elements")
+    plan = reflect_pad_bands(h, w, (left, right, top, bottom), g.element_size())
+    if _BARRIER_BYTES + plan.stage_bytes > SHARED_MEMORY_MAX:
+        raise ValueError(f"{name}: a band of {plan.rows} rows of a padded {hp}x{wp} plane needs "
+                         f"{plan.stage_bytes} bytes of shared memory, over the card's {SHARED_MEMORY_MAX}")
     dx = torch.empty((n, c, h, w), device=g.device, dtype=g.dtype)
     if dx.numel() == 0:
         return dx
     fn = getattr(_build.library(), _REFLECT_BWD_ENTRY[g.dtype])
     with torch.cuda.device(g.device):
-        err = fn(g.data_ptr(), dx.data_ptr(), n * c, h, w, left, right, top, bottom, _stream(g))
+        err = fn(g.data_ptr(), dx.data_ptr(), n * c, h, w, left, right, top, bottom, *plan, _stream(g))
     _check_launch(err, name)
     LAUNCHES["reflect_pad_bwd"] += 1
     return dx
