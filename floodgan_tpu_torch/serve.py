@@ -24,6 +24,12 @@ The port of floodgan_tpu/serve.py:
     img = fe.predict(stack)                      # thread-safe, numpy
 
 ``from_checkpoint`` reads the ``.ckpt`` files of either package.
+
+While a torch profiler records, the worker, the engine and each request
+record spans (``utils.profiling``): ``serve.gather`` (and in it
+``serve.fill``, from the batch's head on), ``serve.batch`` and
+in it ``serve.stack``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``,
+``serve.deliver``; ``serve.request`` and in it ``serve.queue``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from floodgan_tpu_torch.core import rng
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.models.registry import build_generator, generator_image, generator_returns_mask
 from floodgan_tpu_torch.utils.jax_params import state_dict_from_jax
+from floodgan_tpu_torch.utils.profiling import record, span, tracing
 
 class InferenceEngine:
     """The serving forward of one generator, of any family, at a fixed
@@ -136,8 +143,9 @@ class InferenceEngine:
         """Normalized (B, S, S, C) inputs -> (B, S, S, 3) images in [0,1],
         a tensor on the engine's device (asynchronous on the card)."""
         x = inputs if torch.is_tensor(inputs) else torch.from_numpy(np.asarray(inputs, np.float32))
-        x = x.to(self.wire_dtype).to(self.device)
-        with full_f32(), torch.inference_mode():
+        with span("engine.h2d"):
+            x = x.to(self.wire_dtype).to(self.device)
+        with span("engine.forward", device=self.device), full_f32(), torch.inference_mode():
             x = x.float().permute(0, 3, 1, 2).contiguous()
             dropout = rng.inference(self.device) if self.has_dropout else None
             out = generator_image(self.generator, self.returns_mask, x, dropout)
@@ -223,6 +231,7 @@ class BatchingFrontend:
         stack = np.asarray(stack, np.float32)
         self._check_shape(stack)
         fut: Future = Future()
+        submitted = time.perf_counter()
         # The closed-check and the enqueue are one atomic section, and
         # close() enqueues its sentinel inside the same lock, so the
         # sentinel is the last item the worker sees.
@@ -234,7 +243,7 @@ class BatchingFrontend:
                     f"{self._pending} requests pending (max_pending={self.max_pending})"
                 )
             self._pending += 1
-            self._queue.put((stack, fut))
+            self._queue.put((stack, fut, submitted, self.requests, tracing()))
             self.requests += 1
         return fut
 
@@ -246,6 +255,7 @@ class BatchingFrontend:
         for s in stacks:
             self._check_shape(s)
         futs = [Future() for _ in stacks]
+        submitted = time.perf_counter()
         with self._lock:
             if self._closed:
                 raise RuntimeError("frontend is closed")
@@ -254,8 +264,9 @@ class BatchingFrontend:
                     f"{self._pending} requests pending + {len(stacks)} "
                     f"submitted > max_pending={self.max_pending}"
                 )
-            for s, fut in zip(stacks, futs):
-                self._queue.put((s, fut))
+            traced = tracing()
+            for k, (s, fut) in enumerate(zip(stacks, futs)):
+                self._queue.put((s, fut, submitted, self.requests + k, traced))
             self._pending += len(stacks)
             self.requests += len(stacks)
         return futs
@@ -284,16 +295,26 @@ class BatchingFrontend:
         self._worker.join(timeout=60)
 
     # -------------------------------------------------------------- worker
+    # A queued request is (stack, future, submit time, request number,
+    # whether a profiler recorded at its submit).  Spans (utils.profiling):
+    # serve.gather and serve.batch tile the worker's time; serve.fill is
+    # the gather's part from its head's arrival, the rest the wait for
+    # load; a request's
+    # serve.request and serve.queue are recorded as it is answered, where a
+    # profiler recorded at its submit or records then.
     def _run(self) -> None:
         bs = self.engine.batch_size
         while True:
+            gather_from, traced = time.perf_counter(), tracing()
             head = self._queue.get()
             if head is None:
                 return
             group = [head]
-            deadline = time.monotonic() + self.max_delay
+            head_at = time.perf_counter()
+            deadline = head_at + self.max_delay
+            last = False
             while len(group) < bs:
-                remaining = deadline - time.monotonic()
+                remaining = deadline - time.perf_counter()
                 if remaining <= 0:
                     break
                 try:
@@ -301,31 +322,46 @@ class BatchingFrontend:
                 except queue.Empty:
                     break
                 if item is None:
-                    self._flush(group)
-                    return
+                    last = True
+                    break
                 group.append(item)
+            if traced or tracing():
+                gathered = time.perf_counter()
+                gid = record("serve.gather", gather_from, gathered)
+                record("serve.fill", head_at, gathered, parent=gid)
             self._flush(group)
+            if last:
+                return
 
     def _flush(self, group) -> None:
         bs = self.engine.batch_size
-        # The group has left the queue: admission reopens now.
-        with self._lock:
-            self._pending -= len(group)
-        stacks = np.stack([g[0] for g in group])
-        if len(group) < bs:
-            pad = np.zeros((bs - len(group),) + self.engine.input_shape, np.float32)
-            stacks = np.concatenate([stacks, pad])
-        try:
-            out = self.engine.predict(stacks).cpu().numpy()
-        except Exception as e:  # surface device errors to every waiter
-            for _, fut in group:
-                _fut_deliver(fut, exc=e)
-            return
-        with self._lock:
-            self.batches += 1
-            self.batched_slots += len(group)
-        for i, (_, fut) in enumerate(group):
-            _fut_deliver(fut, result=out[i])
+        batch, taken = self.batches, time.perf_counter()
+        with span("serve.batch", ident=batch):
+            # The group has left the queue: admission reopens now.
+            with self._lock:
+                self._pending -= len(group)
+            with span("serve.stack"):
+                stacks = np.stack([g[0] for g in group])
+                if len(group) < bs:
+                    pad = np.zeros((bs - len(group),) + self.engine.input_shape, np.float32)
+                    stacks = np.concatenate([stacks, pad])
+            out, exc = None, None
+            try:
+                out = self.engine.predict(stacks)
+                with span("engine.d2h"):
+                    out = out.cpu().numpy()
+            except Exception as e:  # surface device errors to every waiter
+                exc = e
+            else:
+                with self._lock:
+                    self.batches += 1
+                    self.batched_slots += len(group)
+            with span("serve.deliver"):
+                for i, (_, fut, submitted, k, traced) in enumerate(group):
+                    _fut_deliver(fut, None if exc is not None else out[i], exc)
+                    if traced or tracing():
+                        rid = record("serve.request", submitted, time.perf_counter(), ident=k)
+                        record("serve.queue", submitted, taken, ident=batch, parent=rid)
 
 
 # ========================================================== multi-model serving

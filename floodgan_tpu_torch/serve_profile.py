@@ -83,7 +83,8 @@ def profile_engine(batch: int, size: int, iters: int, seed: int = 47) -> dict:
             engine.predict(x).cpu().numpy()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # The spans' record_function ranges come back as CUDA user annotations too.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     by_cat = collections.Counter()
     by_name = collections.Counter()
     for e in kernels:

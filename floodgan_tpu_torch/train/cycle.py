@@ -19,6 +19,11 @@ One ``train_step`` is the JAX step on NCHW tensors:
             concatenated on the batch axis (exact with instance norm),
             (real + synthetic) x 0.5 per direction; one Adam covers both Ds.
 
+While a torch profiler records, a step records the spans
+(``utils.profiling``) ``train.step``, numbered by the caller's ``step``,
+and in it ``train.g_update``, ``train.replay`` (the buffers) and
+``train.d_update``, each with its card time.
+
 Both Ds read ``input_channels`` channels: a synthetic RGB image carries the
 condition channels of its input.  Mixed precision is PairedTrainer's: f32
 master parameters, one autocast region per generator or D read, f32 at
@@ -80,6 +85,7 @@ from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
 from floodgan_tpu_torch.train.paired import _DTYPES, to_nchw
+from floodgan_tpu_torch.utils.profiling import span
 
 
 class ImageBuffer:
@@ -234,59 +240,62 @@ class CycleTrainer:
         the global batch).
         Returns the losses under the JAX keys, as f32 scalars on the
         trainer's device."""
-        cfg = self.cfg
-        real_pre = to_nchw(input_stack, self.device)
-        y = to_nchw(output_image, self.device)
-        conditions = real_pre[:, 3:]
+        cfg, dev = self.cfg, self.device
+        with span("train.step", ident=step, device=dev):
+            real_pre = to_nchw(input_stack, dev)
+            y = to_nchw(output_image, dev)
+            conditions = real_pre[:, 3:]
 
-        def with_cond(rgb):
-            return torch.cat([rgb, conditions], 1) if self.has_condition else rgb
+            def with_cond(rgb):
+                return torch.cat([rgb, conditions], 1) if self.has_condition else rgb
 
-        real_post = with_cond(y)
-        pre_rgb, post_rgb = real_pre[:, :3], y
-        gen, sp = self.gen_apply, self.spatial
-        with full_f32():
-            # ---- generator update, against the current Ds ----
-            self.gen_opt.zero_grad(set_to_none=True)
-            syn_post_c = with_cond(gen(self.gen_ab, real_pre))
-            syn_pre_c = with_cond(gen(self.gen_ba, real_post))
-            rec_post = gen(self.gen_ab, syn_pre_c)
-            rec_pre = gen(self.gen_ba, syn_post_c)
-            post_gen = lsgan_mse(self.disc_apply(self.disc_post, syn_post_c), 1.0, sp)
-            pre_gen = lsgan_mse(self.disc_apply(self.disc_pre, syn_pre_c), 1.0, sp)
-            pre_to_post = l1_loss(rec_pre, pre_rgb, sp) * cfg.cycle_weight
-            post_to_pre = l1_loss(rec_post, post_rgb, sp) * cfg.cycle_weight
-            total = post_gen + pre_gen + pre_to_post + post_to_pre
-            losses = {
-                "losses_generator_post": post_gen,
-                "losses_generator_pre": pre_gen,
-                "losses_pre_to_post_cycle": pre_to_post,
-                "losses_post_to_pre_cycle": post_to_pre,
-            }
-            if self.add_identity_loss:
-                identity_post = l1_loss(gen(self.gen_ab, real_post), post_rgb, sp) * cfg.identity_weight
-                identity_pre = l1_loss(gen(self.gen_ba, real_pre), pre_rgb, sp) * cfg.identity_weight
-                total = total + identity_post + identity_pre
-                losses["losses_identity_post"] = identity_post
-                losses["losses_identity_pre"] = identity_pre
-            total.backward(inputs=self.gen_params)
-            mean_grads(self.mesh, self.gen_ab, self.gen_ba)
-            apply_adam(self.gen_opt, lr)
+            real_post = with_cond(y)
+            pre_rgb, post_rgb = real_pre[:, :3], y
+            gen, sp = self.gen_apply, self.spatial
+            with full_f32():
+                with span("train.g_update", device=dev):  # against the current Ds
+                    self.gen_opt.zero_grad(set_to_none=True)
+                    syn_post_c = with_cond(gen(self.gen_ab, real_pre))
+                    syn_pre_c = with_cond(gen(self.gen_ba, real_post))
+                    rec_post = gen(self.gen_ab, syn_pre_c)
+                    rec_pre = gen(self.gen_ba, syn_post_c)
+                    post_gen = lsgan_mse(self.disc_apply(self.disc_post, syn_post_c), 1.0, sp)
+                    pre_gen = lsgan_mse(self.disc_apply(self.disc_pre, syn_pre_c), 1.0, sp)
+                    pre_to_post = l1_loss(rec_pre, pre_rgb, sp) * cfg.cycle_weight
+                    post_to_pre = l1_loss(rec_post, post_rgb, sp) * cfg.cycle_weight
+                    total = post_gen + pre_gen + pre_to_post + post_to_pre
+                    losses = {
+                        "losses_generator_post": post_gen,
+                        "losses_generator_pre": pre_gen,
+                        "losses_pre_to_post_cycle": pre_to_post,
+                        "losses_post_to_pre_cycle": post_to_pre,
+                    }
+                    if self.add_identity_loss:
+                        identity_post = l1_loss(gen(self.gen_ab, real_post), post_rgb, sp) * cfg.identity_weight
+                        identity_pre = l1_loss(gen(self.gen_ba, real_pre), pre_rgb, sp) * cfg.identity_weight
+                        total = total + identity_post + identity_pre
+                        losses["losses_identity_post"] = identity_post
+                        losses["losses_identity_pre"] = identity_pre
+                    total.backward(inputs=self.gen_params)
+                    mean_grads(self.mesh, self.gen_ab, self.gen_ba)
+                    apply_adam(self.gen_opt, lr)
 
-            # ---- replay buffers ----
-            buffered_pre, buffered_post = self._query_buffers(syn_pre_c.detach(), syn_post_c.detach(), epoch, step)
-            b = real_pre.shape[0]
+                with span("train.replay", device=dev):
+                    buffered_pre, buffered_post = self._query_buffers(syn_pre_c.detach(), syn_post_c.detach(),
+                                                                      epoch, step)
+                b = real_pre.shape[0]
 
-            # ---- discriminator update ----
-            self.disc_opt.zero_grad(set_to_none=True)
-            pred_pre = self.disc_apply(self.disc_pre, torch.cat([real_pre, buffered_pre.float()], 0))
-            pred_post = self.disc_apply(self.disc_post, torch.cat([real_post, buffered_post.float()], 0))
-            real_pre_loss, syn_pre_loss = lsgan_mse(pred_pre[:b], 1.0, sp), lsgan_mse(pred_pre[b:], 0.0, sp)
-            real_post_loss, syn_post_loss = lsgan_mse(pred_post[:b], 1.0, sp), lsgan_mse(pred_post[b:], 0.0, sp)
-            ((real_pre_loss + syn_pre_loss) * cfg.disc_weight
-             + (real_post_loss + syn_post_loss) * cfg.disc_weight).backward()
-            mean_grads(self.mesh, self.disc_post, self.disc_pre)
-            apply_adam(self.disc_opt, lr)
+                with span("train.d_update", device=dev):
+                    self.disc_opt.zero_grad(set_to_none=True)
+                    pred_pre = self.disc_apply(self.disc_pre, torch.cat([real_pre, buffered_pre.float()], 0))
+                    pred_post = self.disc_apply(self.disc_post, torch.cat([real_post, buffered_post.float()], 0))
+                    real_pre_loss, syn_pre_loss = lsgan_mse(pred_pre[:b], 1.0, sp), lsgan_mse(pred_pre[b:], 0.0, sp)
+                    real_post_loss = lsgan_mse(pred_post[:b], 1.0, sp)
+                    syn_post_loss = lsgan_mse(pred_post[b:], 0.0, sp)
+                    ((real_pre_loss + syn_pre_loss) * cfg.disc_weight
+                     + (real_post_loss + syn_post_loss) * cfg.disc_weight).backward()
+                    mean_grads(self.mesh, self.disc_post, self.disc_pre)
+                    apply_adam(self.disc_opt, lr)
 
         losses.update({
             "losses_discriminator_pre_real": real_pre_loss,

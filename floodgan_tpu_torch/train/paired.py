@@ -13,6 +13,11 @@ One ``train_step`` is the JAX ``_adversarial_update`` in image space:
 After a step every parameter's ``.grad`` holds that step's gradient, the
 one Adam consumed.
 
+While a torch profiler records, a step records the spans
+(``utils.profiling``) ``train.step``, numbered by the caller's ``step``,
+and in it ``train.g_forward``, ``train.d_update`` and ``train.g_update``,
+each with its card time.
+
 Mixed precision follows paired.py:131-157.  The parameters are f32
 masters.  Under ``compute_dtype="bfloat16"`` each generator read and each
 D read runs in its own ``torch.autocast`` region, so the convolutions run
@@ -81,6 +86,7 @@ from floodgan_tpu_torch.parallel.mesh import mean_grads
 from floodgan_tpu_torch.train import remat as remat_lib
 from floodgan_tpu_torch.train.losses import l1_loss, lsgan_mse
 from floodgan_tpu_torch.train.optim import adam, apply_adam
+from floodgan_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -209,27 +215,29 @@ class PairedTrainer:
         ``step``).  On a mesh the batch is this rank's part
         (``mesh.shard_images`` of the global batch).  Returns the four
         losses under the JAX keys, as f32 scalars on the trainer's device."""
-        cfg = self.cfg
-        x = self._nchw(input_stack)
-        y = self._nchw(output_image)
-        with full_f32():
-            synthetic = self.gen_apply(x, self.dropout_generator(epoch, step, x.shape[0]))
+        cfg, dev = self.cfg, self.device
+        with span("train.step", ident=step, device=dev):
+            x = self._nchw(input_stack)
+            y = self._nchw(output_image)
+            with full_f32():
+                with span("train.g_forward", device=dev):
+                    synthetic = self.gen_apply(x, self.dropout_generator(epoch, step, x.shape[0]))
 
-            # ---- discriminator update ----
-            self.disc_opt.zero_grad(set_to_none=True)
-            loss_d_syn = lsgan_mse(self.disc_apply(torch.cat([x, synthetic.detach()], 1)), 0.0, self.spatial)
-            loss_d_real = lsgan_mse(self.disc_apply(torch.cat([x, y], 1)), 1.0, self.spatial)
-            ((loss_d_syn + loss_d_real) * cfg.disc_weight).backward()
-            mean_grads(self.mesh, self.discriminator)
-            apply_adam(self.disc_opt, lr)
+                with span("train.d_update", device=dev):
+                    self.disc_opt.zero_grad(set_to_none=True)
+                    loss_d_syn = lsgan_mse(self.disc_apply(torch.cat([x, synthetic.detach()], 1)), 0.0, self.spatial)
+                    loss_d_real = lsgan_mse(self.disc_apply(torch.cat([x, y], 1)), 1.0, self.spatial)
+                    ((loss_d_syn + loss_d_real) * cfg.disc_weight).backward()
+                    mean_grads(self.mesh, self.discriminator)
+                    apply_adam(self.disc_opt, lr)
 
-            # ---- generator update against the updated D ----
-            self.gen_opt.zero_grad(set_to_none=True)
-            loss_g_adv = lsgan_mse(self.disc_apply(torch.cat([x, synthetic], 1)), 1.0, self.spatial)
-            loss_g_l1 = l1_loss(synthetic, y, self.spatial) * cfg.l1_weight
-            (loss_g_adv + loss_g_l1).backward(inputs=list(self.generator.parameters()))
-            mean_grads(self.mesh, self.generator)
-            apply_adam(self.gen_opt, lr)
+                with span("train.g_update", device=dev):  # against the updated D
+                    self.gen_opt.zero_grad(set_to_none=True)
+                    loss_g_adv = lsgan_mse(self.disc_apply(torch.cat([x, synthetic], 1)), 1.0, self.spatial)
+                    loss_g_l1 = l1_loss(synthetic, y, self.spatial) * cfg.l1_weight
+                    (loss_g_adv + loss_g_l1).backward(inputs=list(self.generator.parameters()))
+                    mean_grads(self.mesh, self.generator)
+                    apply_adam(self.gen_opt, lr)
 
         losses = {
             "losses_discriminator_real": loss_d_real.detach(),

@@ -71,7 +71,8 @@ def profile_trainer(batch: int, size: int, iters: int, dtype: str, seed: int = 4
             trainer.train_step(x, y, lr)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # The spans' record_function ranges come back as CUDA user annotations too.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     by_cat = collections.Counter()
     by_name = collections.Counter()
     for e in kernels:

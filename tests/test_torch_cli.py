@@ -75,8 +75,13 @@ def test_train_cli_verbose_lines(trained):
 
 
 def test_train_cli_writes_a_profile(trained):
+    """The Chrome trace holds the trainer's spans: a train.step range for
+    each of the 2 epochs' 3 steps, with its updates."""
     with open(f"{trained['data_path']}/profile/trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
+    for span in ("train.step", "train.g_forward", "train.d_update", "train.g_update"):
+        assert names.count(span) == 6, span
 
 
 def test_train_cli_resumes_from_its_checkpoint(trained):
@@ -182,17 +187,3 @@ def test_clis_without_device_need_the_card(trained, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_predict.main(["--pretrained_model_path", trained["ckpts"][-1], "--inputs", *inputs,
                           "--output_dir", str(tmp_path)])
-
-
-def test_step_timer_warmup_discard():
-    from floodgan_tpu_torch.utils.profiling import StepTimer
-
-    t = StepTimer(warmup=2)
-    assert np.isnan(t.mean)
-    with pytest.raises(RuntimeError, match="before start"):
-        t.stop()
-    t.samples.extend([1.0, 1.0, 0.1, 0.1])
-    np.testing.assert_allclose(t.mean, 0.1)
-    np.testing.assert_allclose(t.steps_per_sec, 10.0)
-    t.start()
-    assert t.stop() >= 0 and len(t.samples) == 5
