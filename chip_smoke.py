@@ -51,8 +51,10 @@ It fails unless every phase passes:
               predict launches the IN kernel 25 times and compose once, and
               no backward kernel; the output is finite, in [0, 1]; latency
               and images/s.
-5. requests - 12 requests from 4 threads through BatchingFrontend, with the
-              launch counts set to 0 before and read after: the serving path.
+5. requests - 12 requests from 4 threads through BatchingFrontend, each
+              thread's 3 outstanding at once, with the launch counts set to
+              0 before and read after: the serving path; its staging buffers
+              pinned, and some requests staged while a batch ran.
 6. card-cpu - the same weights at 128^2, batch 1: card engine against the
               CPU engine (plain versions), TF32 off.
 7. train    - PairedTrainer at 512^2, batch 8, bf16, from a seeded init: one
@@ -1270,9 +1272,10 @@ def phase_requests(engine) -> dict:
     errors = []
 
     def client(idx):
-        try:
-            for i in idx:
-                results[i] = fe.predict(stacks[i], timeout=300)
+        try:  # all of a client's requests outstanding at once, so some are staged while a batch runs
+            futs = {i: fe.submit(stacks[i]) for i in idx}
+            for i, fut in futs.items():
+                results[i] = fut.result(timeout=300)
         except Exception as e:  # reported below; the phase then fails
             errors.append(e)
 
@@ -1292,6 +1295,9 @@ def phase_requests(engine) -> dict:
     stats = fe.stats()
     check(not errors and not any(t.is_alive() for t in threads), f"requests failed: {errors}")
     check(stats["requests"] == 12, f"frontend counted {stats['requests']} requests")
+    check(all(b.host.is_pinned() and b.out.is_pinned() for b in fe._buffers),
+          "the frontend's staging buffers are not pinned")
+    check(stats["staged_while_busy"] > 0, f"no request was staged while a batch ran: {stats}")
     batches = stats["batches"]
     want = {k: v * batches for k, v in SERVE_LAUNCHES.items()}
     check(counts == want, f"{batches} batches launched {counts}, expected {want}")
@@ -1306,7 +1312,8 @@ def phase_requests(engine) -> dict:
             np.testing.assert_allclose(results[lo + j], want[j], rtol=1e-5, atol=1e-6)
             worst = max(worst, float(np.abs(results[lo + j] - want[j]).max()))
     say("requests", f"12 requests from 4 threads in {wall:.3f} s: launches {counts}, "
-                    f"stats {json.dumps(stats)}, max |frontend - engine| {worst:.3g}")
+                    f"stats {json.dumps(stats)}, staged while busy {stats['staged_while_busy'] / 12:.1%}, "
+                    f"staging buffers pinned, max |frontend - engine| {worst:.3g}")
     return counts
 
 
@@ -3632,11 +3639,11 @@ def _in_threads(fn, n: int, timeout: float = 600) -> None:
 
 
 def _served_batch_ms(engine, image: np.ndarray, runs: int = 5) -> dict:
-    """Host-clock medians of what the frontend's worker does in turn for a
-    batch holding one request (``BatchingFrontend._flush``): stack and
-    zero-pad on the host, the copy to the card, the forward, the copy back;
-    and the whole of ``engine.predict(batch).cpu().numpy()``, which the
-    worker runs after the stack.  Each call launches one forward."""
+    """Host-clock medians of a batch holding one request served in turn,
+    without the frontend's pipeline: stack and zero-pad on the host, the
+    copy to the card, the forward, the copy back; and the whole of
+    ``engine.predict(batch).cpu().numpy()``.  Each call launches one
+    forward."""
     parts = {"stack and pad": [], "host to card": [], "forward": [], "card to host": [],
              "predict and copy back": []}
     for _ in range(runs):
@@ -3814,10 +3821,10 @@ def phase_load(smi, ckpt: str) -> dict:
         k: per_model["paired"][k] * (batches["paired"] + batches["burst"]) + per_model["cycle"][k] * batches["cycle"]
         for k in NO_LAUNCHES})
     ms = np.sort(np.array(single_s)) * 1e3
-    say("load", f"one served batch of 1 request at batch {BATCH}, as the frontend's worker runs it (host clock, "
-                f"median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+    say("load", f"one served batch of 1 request at batch {BATCH}, in turn without the frontend's pipeline "
+                f"(host clock, median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
                 + f"; the forward is {parts['forward'] / (parts['stack and pad'] + parts['predict and copy back']):.3f}"
-                f" of the worker's batch (stack and pad, then predict and copy back); the CycleGAN "
+                f" of that batch (stack and pad, then predict and copy back); the CycleGAN "
                 f"engine's batch-{BATCH} forward {cycle_ms:.3f} ms ({smi})")
     say("load", f"HTTP, {HTTP_CLIENTS} clients x ({HTTP_SINGLE} single-image + one {HTTP_MULTI}-image .npy POST) to "
                 f"alternating models in {http_s:.2f} s: all {len(answers)} answers 200, max |HTTP - engine.predict| "

@@ -9,7 +9,8 @@ The port of floodgan_tpu/serve.py:
 - ``BatchingFrontend``: a dynamic micro-batcher.  Client threads submit
   single images; one worker thread owns the engine, groups requests into
   its fixed batch shape (zero-padding stragglers) and answers through
-  futures.
+  futures.  It stages the next batch in pinned buffers while the card
+  runs the current one (``InferenceEngine.launch``).
 - ``ModelRepository`` + ``serve_http``: multi-model serving over a stdlib
   ThreadingHTTPServer speaking raw ``.npy`` bodies.
 
@@ -26,20 +27,24 @@ The port of floodgan_tpu/serve.py:
 ``from_checkpoint`` reads the ``.ckpt`` files of either package.
 
 While a torch profiler records, the worker, the engine and each request
-record spans (``utils.profiling``): ``serve.gather`` (and in it
-``serve.fill``, from the batch's head on), ``serve.batch`` and
-in it ``serve.stack``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``,
-``serve.deliver``; ``serve.request`` and in it ``serve.queue``.
+record spans (``utils.profiling``): ``serve.stage`` for each request as it
+is staged; ``serve.gather`` (and in it ``serve.fill``, from the batch's
+head on) where the worker waited for a batch's head with the card idle;
+``serve.batch`` and in it ``serve.stack``, ``engine.h2d``,
+``engine.forward``, ``engine.d2h``, ``serve.deliver``; ``serve.request``
+and in it ``serve.queue``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,7 +56,7 @@ from floodgan_tpu_torch.core import rng
 from floodgan_tpu_torch.data.transforms import apply_transformations_batch, denormalize
 from floodgan_tpu_torch.models.registry import build_generator, generator_image, generator_returns_mask
 from floodgan_tpu_torch.utils.jax_params import state_dict_from_jax
-from floodgan_tpu_torch.utils.profiling import record, span, tracing
+from floodgan_tpu_torch.utils.profiling import new_id, record, span, tracing, under
 
 class InferenceEngine:
     """The serving forward of one generator, of any family, at a fixed
@@ -151,6 +156,19 @@ class InferenceEngine:
             out = generator_image(self.generator, self.returns_mask, x, dropout)
             return denormalize(out).permute(0, 2, 3, 1).contiguous()
 
+    def launch(self, x: torch.Tensor, out: torch.Tensor):
+        """``predict`` of ``x``, a (B, S, S, C) batch already on the device
+        in the wire dtype, with its (B, S, S, 3) images copied into ``out``
+        (pinned host memory, for the card) without waiting.  Returns the
+        CUDA event recorded after the copy, or None on the CPU, where the
+        work is done on return."""
+        out.copy_(self.predict(x), non_blocking=True)
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event(blocking=True)  # a waiting thread sleeps rather than spins
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
     @property
     def input_shape(self):
         return (self.image_size, self.image_size, self.channels)
@@ -190,6 +208,28 @@ def _fut_deliver(fut: Future, result=None, exc=None) -> None:
         pass  # cancelled (or already resolved) waiter: nothing to deliver
 
 
+class _Buffers(NamedTuple):
+    """One batch's staging buffers, allocated once per frontend."""
+
+    host: torch.Tensor  # (B, S, S, C) in the wire dtype, pinned for the card
+    device: torch.Tensor  # the same on the engine's device
+    out: torch.Tensor  # (B, S, S, 3) f32 images, pinned for the card
+
+
+class _Batch:
+    """A batch in the worker's pipeline: its number (its spans' ident), its
+    buffer set, its requests, and what its spans and completion need."""
+
+    def __init__(self, number: int, buffers: int, head_at: float, deadline: float, gather):
+        self.number, self.buffers, self.head_at, self.deadline = number, buffers, head_at, deadline
+        self.gather = gather  # (start, traced) of the card-idle wait for its head, or None
+        self.group: list = []
+        self.exc: Optional[BaseException] = None
+        self.bid: Optional[int] = None  # its serve.batch span's id, taken at the close when traced
+        self.closed = self.launched = self.completed = None
+        self.event = None
+
+
 class BatchingFrontend:
     """Groups concurrent single-image requests into fixed-shape batches.
 
@@ -199,6 +239,17 @@ class BatchingFrontend:
     (requests not yet taken into a batch): submits beyond it fail fast with
     ``FrontendOverloaded``.  Requests already taken into a batch stop
     counting, so the next batch forms while one executes.
+
+    The worker pipelines batches over two sets of buffers.  It copies each
+    request, as it takes it, into its slot of the next batch's host buffer
+    (pinned for the card) and starts that slot's copy to the card on a side
+    stream, while the card runs the current batch.  A next batch that fills
+    is launched behind the running one at once; a partial one when the
+    running one completes.  A watcher thread waits for each launched
+    batch's event and hands the batch back to the worker, which launches
+    the next batch and then answers this one.  With the card idle, a batch
+    closes as above, when full or at its head's deadline.  On a CPU engine
+    the buffers are plain and a batch is done at launch.
     """
 
     def __init__(
@@ -211,14 +262,35 @@ class BatchingFrontend:
         self.max_delay = max_delay_ms / 1e3
         self.max_pending = max_pending
         self._pending = 0
-        self._queue: "queue.Queue" = queue.Queue()
+        self._queue: "queue.Queue" = queue.Queue()  # requests, close()'s None, completed batches
         self._closed = False
         self._lock = threading.Lock()
         self.requests = 0
         self.batches = 0
         self.batched_slots = 0
+        self.staged_while_busy = 0
+        dev = engine.device
+        cuda = dev.type == "cuda"
+        shape = (engine.batch_size,) + engine.input_shape
+        self._buffers = [
+            _Buffers(torch.empty(shape, dtype=engine.wire_dtype, pin_memory=cuda),
+                     torch.empty(shape, dtype=engine.wire_dtype, device=dev),
+                     torch.empty(shape[:-1] + (3,), pin_memory=cuda))
+            for _ in range(2)
+        ]
+        self._copies = torch.cuda.Stream(dev) if cuda else None  # the slots' copies to the card
+        # The worker's pipeline (its thread alone touches these).
+        self._free = list(range(len(self._buffers)))
+        self._staging: Optional[_Batch] = None  # the next batch, filling
+        self._inflight: "collections.deque[_Batch]" = collections.deque()  # launched, oldest first
+        self._held: collections.deque = collections.deque()  # taken while no buffer set is free
+        self._idle_since = None  # (start, traced) of the card-idle wait for a head
+        self._opened = 0
+        self._launched: "queue.Queue" = queue.Queue()  # batches for the watcher, then None
         self._worker = threading.Thread(target=self._run, daemon=True)
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
         self._worker.start()
+        self._watcher.start()
 
     # -------------------------------------------------------------- client
     def _check_shape(self, stack: np.ndarray) -> None:
@@ -276,6 +348,8 @@ class BatchingFrontend:
         return self.submit(stack).result(timeout=timeout)
 
     def stats(self) -> dict:
+        """Counters since construction; ``staged_while_busy`` counts the
+        requests staged while a batch was on the card."""
         with self._lock:
             b = max(self.batches, 1)
             return {
@@ -284,84 +358,164 @@ class BatchingFrontend:
                 "batch_size": self.engine.batch_size,
                 "pending": self._pending,
                 "mean_occupancy": self.batched_slots / (b * self.engine.batch_size),
+                "staged_while_busy": self.staged_while_busy,
             }
 
     def close(self) -> None:
+        """Answer every request admitted so far, the batches in flight
+        included, then stop the worker and the watcher."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
-            self._queue.put(None)  # the last item (see submit)
+            self._queue.put(None)  # the last request item (see submit)
         self._worker.join(timeout=60)
+        self._watcher.join(timeout=60)
 
     # -------------------------------------------------------------- worker
     # A queued request is (stack, future, submit time, request number,
     # whether a profiler recorded at its submit).  Spans (utils.profiling):
-    # serve.gather and serve.batch tile the worker's time; serve.fill is
-    # the gather's part from its head's arrival, the rest the wait for
-    # load; a request's
-    # serve.request and serve.queue are recorded as it is answered, where a
-    # profiler recorded at its submit or records then.
+    # serve.stage for each request as it is staged, naming its batch;
+    # serve.gather (and in it serve.fill, from the head's arrival on) for a
+    # batch whose head the worker waited for with the card idle; a batch's
+    # serve.batch, from its close to its answers, holding serve.stack,
+    # engine.h2d and engine.forward at the close, engine.d2h from the copy
+    # back's start to the watcher's sight of its end, and serve.deliver.
+    # A request's serve.request and serve.queue (submit to its batch's
+    # close) are recorded as it is answered, where a profiler recorded at
+    # its submit or records then.
     def _run(self) -> None:
         bs = self.engine.batch_size
-        while True:
-            gather_from, traced = time.perf_counter(), tracing()
-            head = self._queue.get()
-            if head is None:
-                return
-            group = [head]
-            head_at = time.perf_counter()
-            deadline = head_at + self.max_delay
-            last = False
-            while len(group) < bs:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    item = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if item is None:
-                    last = True
-                    break
-                group.append(item)
-            if traced or tracing():
-                gathered = time.perf_counter()
-                gid = record("serve.gather", gather_from, gathered)
-                record("serve.fill", head_at, gathered, parent=gid)
-            self._flush(group)
-            if last:
-                return
-
-    def _flush(self, group) -> None:
-        bs = self.engine.batch_size
-        batch, taken = self.batches, time.perf_counter()
-        with span("serve.batch", ident=batch):
-            # The group has left the queue: admission reopens now.
-            with self._lock:
-                self._pending -= len(group)
-            with span("serve.stack"):
-                stacks = np.stack([g[0] for g in group])
-                if len(group) < bs:
-                    pad = np.zeros((bs - len(group),) + self.engine.input_shape, np.float32)
-                    stacks = np.concatenate([stacks, pad])
-            out, exc = None, None
+        closing = False
+        while not closing or self._inflight or self._staging is not None:  # held requests imply a batch in flight
+            if self._idle_since is None and not self._inflight and self._staging is None:
+                self._idle_since = (time.perf_counter(), tracing())
+            timeout = None
+            if self._staging is not None and not self._inflight:
+                # The card is idle: the batch closes when full, at its head's
+                # deadline, or on close().
+                timeout = self._staging.deadline - time.perf_counter()
+                if closing or timeout <= 0 or len(self._staging.group) == bs:
+                    self._launch()
+                    continue
             try:
-                out = self.engine.predict(stacks)
-                with span("engine.d2h"):
-                    out = out.cpu().numpy()
-            except Exception as e:  # surface device errors to every waiter
-                exc = e
+                item = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                continue
+            if item is None:
+                closing = True
+            elif isinstance(item, _Batch):
+                self._complete(item)
             else:
-                with self._lock:
-                    self.batches += 1
-                    self.batched_slots += len(group)
-            with span("serve.deliver"):
-                for i, (_, fut, submitted, k, traced) in enumerate(group):
-                    _fut_deliver(fut, None if exc is not None else out[i], exc)
-                    if traced or tracing():
-                        rid = record("serve.request", submitted, time.perf_counter(), ident=k)
-                        record("serve.queue", submitted, taken, ident=batch, parent=rid)
+                self._take(item)
+        self._launched.put(None)
+
+    def _take(self, item) -> None:
+        """Stage a request into the next batch, opening one on a free buffer
+        set, or hold it while both sets are in flight.  A batch that fills
+        while the card is busy is launched behind the one that runs."""
+        if self._staging is None:
+            if not self._free:
+                self._held.append(item)
+                return
+            now = time.perf_counter()
+            gather = None if self._inflight else self._idle_since
+            self._staging = _Batch(self._opened, self._free.pop(), now, now + self.max_delay, gather)
+            self._opened += 1
+            self._idle_since = None
+        batch, busy = self._staging, bool(self._inflight)
+        bufs, slot = self._buffers[batch.buffers], len(batch.group)
+        with span("serve.stage", ident=batch.number):
+            if batch.exc is None:
+                try:
+                    bufs.host[slot].copy_(torch.from_numpy(item[0]))  # the wire cast, as predict's
+                    with torch.cuda.stream(self._copies) if self._copies is not None else contextlib.nullcontext():
+                        bufs.device[slot].copy_(bufs.host[slot], non_blocking=True)
+                except Exception as e:  # reaches the batch's waiters at its close
+                    batch.exc = e
+        batch.group.append(item)
+        with self._lock:
+            self._pending -= 1  # admission reopens as a request is staged
+            self.staged_while_busy += busy
+        if busy and len(batch.group) == self.engine.batch_size:
+            self._launch()
+
+    def _launch(self) -> None:
+        """Close the next batch and start it on the card, behind the batch
+        that runs there, if any; a batch that fails here is answered at
+        once."""
+        batch, self._staging = self._staging, None
+        batch.closed = time.perf_counter()
+        if batch.gather is not None:
+            gather_from, traced = batch.gather
+            if traced or tracing():
+                gid = record("serve.gather", gather_from, batch.closed)
+                record("serve.fill", batch.head_at, batch.closed, parent=gid)
+        if tracing():
+            batch.bid = new_id()
+        if batch.exc is None:
+            bufs = self._buffers[batch.buffers]
+            try:
+                with under(batch.bid):
+                    with span("serve.stack"):
+                        bufs.device[len(batch.group):].zero_()  # no earlier batch's tile reaches the forward
+                        if self._copies is not None:  # the forward follows the slots' copies
+                            torch.cuda.current_stream(self.engine.device).wait_stream(self._copies)
+                    batch.event = self.engine.launch(bufs.device, bufs.out)
+                batch.launched = time.perf_counter()
+            except Exception as e:  # surface device errors to the batch's waiters
+                batch.exc = e
+        if batch.exc is not None:
+            self._deliver(batch)
+            return
+        self._inflight.append(batch)
+        self._launched.put(batch)
+
+    def _watch(self) -> None:
+        """The watcher: wait for each launched batch's event in turn
+        (``Event.synchronize`` releases the interpreter), then hand the
+        batch back to the worker through its queue."""
+        while True:
+            batch = self._launched.get()
+            if batch is None:
+                return
+            try:
+                if batch.event is not None:
+                    batch.event.synchronize()
+            except Exception as e:  # a device error surfaces at the batch's event
+                batch.exc = e
+            batch.completed = time.perf_counter()
+            self._queue.put(batch)
+
+    def _complete(self, batch: _Batch) -> None:
+        """The oldest batch in flight has ended: launch the next batch, full
+        or not, answer this one, then stage the requests held meanwhile."""
+        self._inflight.popleft()
+        if self._staging is not None:
+            self._launch()
+        self._deliver(batch)
+        while self._held and (self._staging is not None or self._free):
+            self._take(self._held.popleft())
+
+    def _deliver(self, batch: _Batch) -> None:
+        """Answer the batch's waiters, each with its own copy of its image
+        (the buffer is reused), and free its buffer set."""
+        if batch.exc is None:
+            with self._lock:
+                self.batches += 1
+                self.batched_slots += len(batch.group)
+        with under(batch.bid), span("serve.deliver"):
+            out = self._buffers[batch.buffers].out.numpy()
+            for i, (_, fut, submitted, k, traced) in enumerate(batch.group):
+                _fut_deliver(fut, None if batch.exc is not None else out[i].copy(), batch.exc)
+                if traced or tracing():
+                    rid = record("serve.request", submitted, time.perf_counter(), ident=k)
+                    record("serve.queue", submitted, batch.closed, ident=batch.number, parent=rid)
+        self._free.append(batch.buffers)
+        if batch.bid is not None:
+            if batch.completed is not None:
+                record("engine.d2h", batch.launched, batch.completed, parent=batch.bid)
+            record("serve.batch", batch.closed, time.perf_counter(), ident=batch.number, rid=batch.bid)
 
 
 # ========================================================== multi-model serving

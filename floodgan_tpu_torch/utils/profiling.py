@@ -135,14 +135,38 @@ def span(name: str, ident: Optional[int] = None, parent: Optional[int] = None,
     return _Span(name, ident, parent, device)
 
 
-def record(name: str, start: float, end: float, ident: Optional[int] = None, parent: Optional[int] = None) -> int:
+def record(name: str, start: float, end: float, ident: Optional[int] = None, parent: Optional[int] = None,
+           rid: Optional[int] = None) -> int:
     """Append the record of a stretch whose bounds were read before it was
     decided to record it (a request's wait, from another thread's clock
-    reading); the caller checks ``tracing()`` first.  Returns its id.
+    reading); the caller checks ``tracing()`` first.  Returns its id:
+    ``rid`` where given, an id taken earlier from ``new_id()`` for a span
+    whose children were recorded before it ended (a served batch's).
     Such a span has no ``record_function`` range."""
-    rid = next(_ids)
+    rid = next(_ids) if rid is None else rid
     _ring.append(SpanRecord(name, rid, parent, ident, start, end))
     return rid
+
+
+def new_id() -> int:
+    """A fresh span id, for ``record(..., rid=)``."""
+    return next(_ids)
+
+
+@contextlib.contextmanager
+def under(parent: Optional[int]) -> Iterator[None]:
+    """Spans opened on this thread in the body take ``parent``, a span id
+    (None: no change), as their default parent: for a span recorded after
+    its children, over a stretch that it does not hold the thread for."""
+    if parent is None:
+        yield
+        return
+    stack = _open_stack()
+    stack.append(parent)
+    try:
+        yield
+    finally:
+        stack.pop()
 
 
 def span_records() -> List[SpanRecord]:

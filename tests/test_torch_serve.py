@@ -232,19 +232,36 @@ def test_serve_profile_needs_the_card(monkeypatch):
         serve_profile.profile_engine(batch=1, size=32, iters=1)
 
 
-def test_http_overload_returns_503(tiny_engine):
+def test_http_overload_returns_503(tiny_engine, monkeypatch):
+    """A request counts as pending until the worker stages it: with the
+    worker held in its first batch's launch, a second request stays queued
+    and fills the one pending slot, and an HTTP request is refused."""
+    launching, release = threading.Event(), threading.Event()
+    launch = tiny_engine.launch
+
+    def held_launch(*args, **kwargs):
+        launching.set()
+        assert release.wait(60)
+        return launch(*args, **kwargs)
+
+    monkeypatch.setattr(tiny_engine, "launch", held_launch)
     repo = ModelRepository()
-    repo.add("flood", tiny_engine, max_delay_ms=5000.0, max_pending=1)
+    repo.add("flood", tiny_engine, max_delay_ms=0.0, max_pending=1)
     server = serve_http(repo, host="127.0.0.1", port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
         x = np.zeros(tiny_engine.input_shape, np.float32)
+        first = repo.frontend("flood").submit(x)
+        assert launching.wait(60)
         fut = repo.frontend("flood").submit(x)  # occupies the one pending slot
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(f"http://127.0.0.1:{server.server_address[1]}/v1/models/flood:predict", _npy(x), timeout=30)
         assert ei.value.code == 503
         assert json.loads(ei.value.read())["retry"] is True
+        release.set()
+        first.result(timeout=60)
         fut.result(timeout=60)
     finally:
+        release.set()
         server.shutdown()
         repo.close()

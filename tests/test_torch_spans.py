@@ -140,11 +140,14 @@ def engine():
 
 def test_serving_spans_nest_per_request_and_per_batch(engine, rng):
     """Six requests through a frontend started before the profiler: a full
-    batch of 4, then a padded one of 2; each request's serve.request holds
-    its serve.queue, which names its batch; each batch's serve.batch holds
-    its stack, copies, forward and delivery in order; a gather ends where
-    each batch begins, and its serve.fill runs from its head's arrival to
-    its end; the answers are the engine's."""
+    batch of 4, then a padded one of 2.  Each request has one serve.stage,
+    naming its batch and ending before the batch closes, and a
+    serve.request holding its serve.queue, which names its batch and ends
+    where the batch's serve.batch begins (its close); each serve.batch
+    holds its stack, copies, forward, copy back and delivery in order; the
+    first batch's head was waited for with the card idle, so its gather
+    ends where the batch begins and its serve.fill runs from the head's
+    arrival to its end; the answers are the engine's."""
     stacks = rng.random((6, S, S, 9), dtype=np.float32)
     fe = BatchingFrontend(engine, max_delay_ms=200.0)
     try:
@@ -162,22 +165,22 @@ def test_serving_spans_nest_per_request_and_per_batch(engine, rng):
     requests = sorted((r for r in recs if r.name == "serve.request"), key=lambda r: r.ident)
     batches = sorted((r for r in recs if r.name == "serve.batch"), key=lambda r: r.ident)
     assert [r.ident for r in requests] == list(range(6)) and [b.ident for b in batches] == [0, 1]
+    stages = [r for r in recs if r.name == "serve.stage"]
+    assert sorted(st.ident for st in stages) == [0, 0, 0, 0, 1, 1]
+    for st in stages:
+        assert st.end <= batches[st.ident].start
     for r in requests:
         q, = children(recs, r)
         assert q.name == "serve.queue" and q.start == r.start and q.end <= r.end
         assert q.ident == (0 if r.ident < 4 else 1)
-    gathers = [r for r in span_records() if r.name == "serve.gather"]
+        assert q.end == batches[q.ident].start
     for b in batches:
         assert_nested_in_order(b, children(recs, b),
                                ["serve.stack", "engine.h2d", "engine.forward", "engine.d2h", "serve.deliver"])
-        g, = [g for g in gathers if 0 <= b.start - g.end < 0.05]
-        fill, = children(span_records(), g)
-        assert fill.name == "serve.fill" and g.start <= fill.start and fill.end == g.end
-    # The first batch's head came with the first submit, the second's was
-    # already queued when its gather began.
-    first, second = sorted((g for g in gathers if g.end >= t0), key=lambda g: g.start)[:2]
-    assert children(span_records(), first)[0].start >= t0
-    assert children(span_records(), second)[0].start - second.start < 0.05
+    g, = [g for g in span_records() if g.name == "serve.gather" and g.end == batches[0].start]
+    fill, = children(span_records(), g)
+    assert fill.name == "serve.fill" and g.start <= fill.start and fill.end == g.end
+    assert fill.start >= t0  # the head came with the first submit
 
 
 def test_the_engine_alone_opens_root_spans(engine, rng):
